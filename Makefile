@@ -1,19 +1,6 @@
 # Convenience targets. The Python package needs no build; the native oracle
 # builds itself on first use (phys_autodiff_tpu/ref/native.py), or:
-.PHONY: native test bench parity clean freeze unfreeze
-
-# End-of-round compile freeze (see phys_autodiff_tpu/utils/freeze.py):
-# experiment scripts refuse to compile new kernel shapes while armed, so
-# the driver's bench capture can't be wedged by an interrupted compile.
-# The marker lives at the repo root so `make clean` (rm -rf build) cannot
-# silently disarm an active freeze (round-4 ADVICE).
-freeze:
-	date > .freeze
-	@echo "compile freeze ARMED (.freeze); bench/parity stay runnable"
-
-unfreeze:
-	rm -f .freeze
-	@echo "compile freeze lifted"
+.PHONY: native test bench smoke clean
 
 native:
 	mkdir -p build
@@ -22,11 +9,12 @@ native:
 test:
 	python -m pytest tests/ -q
 
+# both need an NVIDIA GPU and refuse to run anywhere else
 bench:
 	PYTHONPATH=.:$$PYTHONPATH python bench.py
 
-parity:
-	PYTHONPATH=.:$$PYTHONPATH python scripts/tpu_parity.py
+smoke:
+	PYTHONPATH=.:$$PYTHONPATH python chip_smoke.py
 
 clean:
 	rm -rf build

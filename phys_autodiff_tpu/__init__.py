@@ -1,6 +1,6 @@
-"""phys_autodiff_tpu — TPU-native differentiable-physics framework.
+"""phys_autodiff_tpu — differentiable-physics framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A JAX/XLA/Pallas re-design of the capabilities of the
 `phys-autodiff` reference (a single-GPU C++23/CUDA differentiable-physics
 engine in the PINN style):
 
@@ -12,13 +12,16 @@ engine in the PINN style):
   * A weighted MSE loss over the residuals with a hand-derived first-order
     VJP g = (2 w / N) R (reference: include/phys.h:54).
 
-Architecture (TPU-first, not a port):
+Architecture:
 
   ref/       float64 NumPy oracle + manufactured solutions (the ground truth)
-  ops/       XLA-staged residual/loss path (the "non-fused" arm) — jnp.roll
+  ops/       the residual/loss path, plain JAX that XLA fuses — jnp.roll
              stencils, fully differentiable via jax.grad
-  pallas/    fused TPU kernels (the "fused" arm) — one-pass residuals,
-             recompute-style fused backward, fused MLP inference
+  pallas/    the one hand-written kernel pair (Triton route): coordinate-MLP
+             field generation whose backward recomputes the hidden
+             activation instead of storing it
+  backend.py the one platform dispatch (compiled kernels on a GPU,
+             interpret mode on the CPU)
   models/    MLP, coordinate generation, field generation (the model family)
   parallel/  device-mesh sharding: z-axis domain decomposition with halo
              exchange (ppermute), psum loss/grad reduction
@@ -34,7 +37,6 @@ Data layout contract (documented bijection to the reference layout):
     `field.reshape(-1)` reproduces the reference flat layout exactly.
   * Reference vector fields are channel-major [3, N] (include/phys.h:20).
     Here they are [3, nz, ny, nx]; `u.reshape(3, -1)` matches.
-  * nx rides the TPU lane dimension, ny the sublane dimension.
 """
 
 from phys_autodiff_tpu.utils.config import (

@@ -157,8 +157,8 @@ def _advect(g: GridSpec, cfg: EulerConfig):
 def _advect_many(g: GridSpec, cfg: EulerConfig):
     """Batched multi-scalar advection for the velocity self-advection:
     one pass over [3, nz, ny, nx] with shared offsets — bitwise equal to
-    three single-component steps and measured ~4x faster (lane-axis rolls
-    materialize; see transport.transport_step_many). Scheme dispatch lives
+    three single-component steps (see transport.transport_step_many for
+    why batching fuses better). Scheme dispatch lives
     in transport.make_step_many (one home for all flavors)."""
     from phys_autodiff_tpu.apps.transport import TransportConfig, make_step_many
 
@@ -210,7 +210,7 @@ def euler_step(
         sigma = apply_no_slip(sigma, mask)
     # 1. self-advection through the frozen pre-step u — all 3 components
     #    in ONE batched pass (shared offsets; bitwise equal to
-    #    component-wise, ~4x faster on TPU)
+    #    component-wise)
     u_adv = _advect_many(g, cfg)(u, u, cfg.dt)
     if mask is not None:
         u_adv = apply_no_slip(u_adv, mask)

@@ -1,23 +1,15 @@
-"""Semi-Lagrangian scalar transport on the grid — gather-free, TPU-first.
+"""Semi-Lagrangian scalar transport on the grid — gather-free.
 
 The classic unconditionally-stable advection step: to advance sigma by dt
 through velocity u, backtrace each cell's characteristic to its departure
-point x_d = x - u(x) dt and interpolate sigma there. Textbook (and GPU)
-implementations gather 8 arbitrary corners per cell; this framework
-MEASURED that scattered gathers run ~24x slower than compute on TPU
-(models/sample.py trilinear note). This module exploits the CFL condition
-instead: with |u| dt <= h per axis, every departure point lies within the
-+-1-neighbor ring, so trilinear interpolation factorizes into three
-axis-sweeps of
-
-Measured on the flagship 128x96x96 grid (scripts/transport_bench.py,
-slope method, frozen CFL-0.8 field): split 0.0263 ms/step =
-44.9 Gcell*steps/s vs the gather formulation of the SAME math at
-79.3 ms/step — a 3000x win for the roll+select design. A hand Pallas
-slab kernel (pallas/transport.py) TIES this number: the 4-stream
-read + 1-stream write pattern is bandwidth-bound at ~1.0 TB/s effective
-and XLA's fused roll pipeline already achieves it (full experiment
-matrix in pallas/transport.py). The sweep form is
+point x_d = x - u(x) dt and interpolate sigma there. Textbook
+implementations gather 8 arbitrary corners per cell. This module exploits
+the CFL condition instead: with |u| dt <= h per axis, every departure
+point lies within the +-1-neighbor ring, so trilinear interpolation
+factorizes into three axis-sweeps of neighbour reads that XLA fuses into
+streaming loops (scripts/transport_bench.py times it against the gather
+formulation of the same math; on the H100 not measured yet). The sweep
+form is
 
     lerp(f_lo, f_hi, w)   with  f_lo/f_hi chosen from {shift -1, 0, +1}
 
@@ -154,12 +146,10 @@ def transport_step_many(
 ) -> jnp.ndarray:
     """Advect a [C, nz, ny, nx] BATCH of scalars through one velocity
     field in a single pass. Bitwise equal per channel to transport_step
-    (pinned by tests) but measured ~3-4x faster than C separate steps at
-    C=3 on TPU: lane-axis rolls materialize real copies, so batching —
-    which shares the offset computation and runs every shift/select/lerp
-    on [C, ...] blocks — is the difference between XLA fusing one chain
-    and spilling three. Used by the Euler stepper's velocity
-    self-advection (apps/euler.py)."""
+    (pinned by tests); batching shares the offset computation and runs
+    every shift/select/lerp on [C, ...] blocks, so XLA fuses one chain
+    instead of three. Used by the Euler stepper's velocity self-advection
+    (apps/euler.py)."""
     assert fields.ndim == 4 and u.shape == (3,) + fields.shape[1:], (
         fields.shape, u.shape)
     dt = jnp.float32(dt)
@@ -182,9 +172,7 @@ def maccormack_step_many(
     limit: bool = True,
 ) -> jnp.ndarray:
     """maccormack_step for a [C, nz, ny, nx] batch (see
-    transport_step_many for why batching matters on TPU: measured
-    1.48 -> 0.39 ms for the 3-component velocity self-advection at
-    128x96x96)."""
+    transport_step_many for why batching matters)."""
     fwd = transport_step_many(g, fields, u, dt)
     bwd = transport_step_many(g, fwd, u, -dt)
     out = fwd + 0.5 * (fields - bwd)

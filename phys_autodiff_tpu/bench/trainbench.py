@@ -1,7 +1,7 @@
 """Training-step benchmark (the reference's never-built M6 closed loop).
 
-A training step is self-validating under the slope-method loop: the updated
-parameters ARE the carry, so every gradient (and therefore the whole
+A training step is self-validating under the on-device timing loop: the
+updated parameters ARE the carry, so every gradient (and therefore the whole
 backward) must be computed at full shape each iteration — structurally
 DCE-proof, like the generational-feedback residual timing. The loss scalar
 is additionally folded into the carry so the forward pass of a custom-vjp
@@ -41,7 +41,6 @@ def bench_train_step(
     all_variants = {
         "staged": train_loop.TrainConfig(use_fused=False),
         "fused": train_loop.TrainConfig(use_fused=True),
-        "fused_f32h": train_loop.TrainConfig(use_fused=True, precision="f32_high"),
         "fused_bf16": train_loop.TrainConfig(use_fused=True, precision="bf16"),
     }
     for name, cfg in all_variants.items():
@@ -54,14 +53,11 @@ def bench_train_step(
 
 
 def bench_ngp_train_step(
-    g: GridSpec, seed: int = 777, precision: str = "f32",
-    backward: str = "auto",
+    g: GridSpec, seed: int = 777, precision: str = "f32"
 ) -> float:
     """ms/step for the NGP hash-encoded field model (framework extension —
-    no reference analogue): dense-level encoder + either the one-kernel NGP
-    backward mega-kernel (backward="mega"/"auto" on hardware) or
-    jax.value_and_grad through the XLA pipeline with the fused physics loss
-    (backward="xla"). precision="bf16" runs the head matmuls in the mixed
+    no reference analogue): dense-level encoder, jax.value_and_grad through
+    the XLA pipeline. precision="bf16" runs the head matmuls in the mixed
     tier."""
     from phys_autodiff_tpu.models import ngp
     from phys_autodiff_tpu.utils.config import PhysWeights as _PW
@@ -70,6 +66,6 @@ def bench_ngp_train_step(
     params = ngp.init_ngp_params(ncfg, seed=seed)
     cfg = train_loop.TrainConfig(t_sampling="fixed")
     step, state0 = train_loop.make_ngp_train_step(
-        g, _PW(), ncfg, cfg, params, precision=precision, backward=backward
+        g, _PW(), ncfg, cfg, params, precision=precision
     )
     return time_train_step(lambda s: step(s), state0)

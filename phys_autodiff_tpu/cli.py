@@ -132,7 +132,8 @@ def cmd_train(args) -> int:
 
     g = _grid_from_args(args)
     mcfg = _model_cfg_from_args(args)
-    cfg = _train_cfg_from_args(args, t=args.t)
+    cfg = _train_cfg_from_args(args, t=args.t, use_fused=args.fused,
+                               precision=args.precision)
     w = PhysWeights()
     if args.family == "mlp":
         state, history, elapsed = loop.fit_scan(g, w, mcfg, cfg)
@@ -140,8 +141,7 @@ def cmd_train(args) -> int:
         losses = [l for _, l in history]
     else:
         params0 = ff.init_any(mcfg, seed=args.seed)
-        step, state = loop.make_ngp_train_step(
-            g, w, mcfg, cfg, params0, backward=args.backward)
+        step, state = loop.make_ngp_train_step(g, w, mcfg, cfg, params0)
         losses = []
         for i in range(cfg.steps):
             state, loss = step(state)
@@ -185,8 +185,7 @@ def cmd_fit(args) -> int:
     mcfg = _model_cfg_from_args(args)
     cfg = _train_cfg_from_args(args)
     params, losses = ff.fit_field(
-        g, mcfg, targets, cfg, phys_weight=args.phys_weight,
-        engine=args.engine)
+        g, mcfg, targets, cfg, phys_weight=args.phys_weight)
     modelio.save_model(args.out, g, mcfg, params)
     report = ff.fit_report(g, mcfg, params, targets)
     report.update(loss_first=float(losses[0]), loss_last=float(losses[-1]),
@@ -360,7 +359,7 @@ def cmd_export(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="phys_autodiff_tpu",
-        description="TPU-native differentiable-physics framework CLI")
+        description="JAX differentiable-physics framework CLI")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     sub.add_parser("info", help="backend / devices / model families")
@@ -370,8 +369,12 @@ def build_parser() -> argparse.ArgumentParser:
     _add_model_args(p)
     _add_opt_args(p)
     p.add_argument("--t", type=float, default=0.25, help="snapshot time")
-    p.add_argument("--backward", choices=["auto", "mega", "xla"],
-                   default="auto", help="encoded families: gradient engine")
+    p.add_argument("--fused", action="store_true",
+                   help="mlp: generate the fields with the kernel pair "
+                        "(pallas/fieldgen.py), which recomputes the hidden "
+                        "activation in the backward instead of storing it")
+    p.add_argument("--precision", choices=["f32", "bf16"], default="f32",
+                   help="mlp: field-generation precision tier")
     p.add_argument("--out", required=True, help="model checkpoint path")
 
     p = sub.add_parser("fit", help="fit a neural field to snapshot .npz(s)")
@@ -381,9 +384,6 @@ def build_parser() -> argparse.ArgumentParser:
     _add_opt_args(p)
     p.add_argument("--phys-weight", type=float, default=0.0,
                    help="PINN composite: weight of the physics residual")
-    p.add_argument("--engine", choices=["auto", "mega", "xla"],
-                   default="auto",
-                   help="gradient engine: mega = one-kernel Pallas fit step")
     p.add_argument("--out", required=True, help="model checkpoint path")
 
     p = sub.add_parser("serve", help="evaluate a model checkpoint")
@@ -443,7 +443,10 @@ _COMMANDS = {
 
 
 def main(argv=None) -> int:
+    from phys_autodiff_tpu.utils.cache import enable_compile_cache
+
     args = build_parser().parse_args(argv)
+    enable_compile_cache()
     return _COMMANDS[args.cmd](args)
 
 

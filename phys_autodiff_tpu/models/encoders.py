@@ -1,9 +1,9 @@
 """Encoder registry: one interface over the encoded-field families.
 
 The encoded-field model (models/ngp.py: encoding -> 2-layer decode head ->
-[sigma, ux, uy, uz]) and everything built on it — the one-kernel training
-step (pallas/mega_ngp.py), the sharded per-shard kernel, checkpoint
-metadata — only consume an [..., out_dim] encoding. This module is the one
+[sigma, ux, uy, uz]) and everything built on it — the training step, the
+sharded step, checkpoint metadata — only consume an [..., out_dim]
+encoding. This module is the one
 place that maps a config TYPE to its implementation. Built-in families:
 
   * HashEncodingConfig  (models/hash_encoder.py): multiresolution hash /
@@ -11,24 +11,20 @@ place that maps a config TYPE to its implementation. Built-in families:
   * FourierEncodingConfig (models/fourier.py): axis-separable positional
     features, no parameters (empty "tables" leaf keeps the pytree uniform).
 
-Third-party encoders plug in through `register_family`: provide the six
+Third-party encoders plug in through `register_family`: provide the four
 callables below for your frozen-dataclass config type and every downstream
-consumer (`NGPFieldConfig(encoding=...)`, the mega-kernel step, the sharded
-step, checkpointing) serves it unchanged — the one-kernel backward only
-needs `encode_grid_zcf` to be jax-differentiable (its cotangent is pulled
-back with jax.vjp; parameter-free families skip that entirely). No
-reference analogue (the reference has exactly one model family —
-SURVEY.md §0); this is the framework-generality surface extensions plug
-into. tests/test_encoders.py pins the contract by registering a toy family
-and training it through the one-kernel step.
+consumer (`NGPFieldConfig(encoding=...)`, the training and sharded steps,
+checkpointing) serves it unchanged — `encode_grid` must be
+jax-differentiable in the family's parameters. No reference analogue (the
+reference has exactly one model family — SURVEY.md §0); this is the
+framework-generality surface extensions plug into. tests/test_encoders.py
+pins the contract by registering a toy family and training it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
-
-import jax
 
 from phys_autodiff_tpu.models import fourier as _fourier
 from phys_autodiff_tpu.models import hash_encoder as _hash
@@ -46,8 +42,6 @@ __all__ = [
     "schedule_meta",
     "encode",
     "encode_grid",
-    "encode_grid_zcf",
-    "encode_grid_zcf_rows",
 ]
 
 
@@ -64,26 +58,9 @@ class EncoderFamily:
       schedule_meta(cfg) -> dict of checkpoint-fingerprint entries (restore
         under a different schedule decodes different fields; keep keys
         family-unique so cross-family restores are detected)
-      encode(cfg, params, coords, allow_large) -> [..., out_dim]
+      encode(cfg, params, coords) -> [..., out_dim]
         pointwise features for coords [..., 3] in [0, 1]
       encode_grid(cfg, params, g) -> [nz, ny, nx, out_dim]
-      encode_grid_zcf(cfg, params, g) -> [nz, out_dim, ny, nx] (the NGP
-        backward mega-kernel's input layout; must be jax-differentiable in
-        params when the family has parameters)
-      encode_grid_zcf_rows(cfg, params, g, rows) -> [len(rows), ...] —
-        encode_grid_zcf restricted to the given global z rows, bit-identical
-        per row (the sharded step's shard-local encoder contract)
-
-    OPTIONAL fast variants (default None -> the exact callables serve both
-    tiers): `encode_grid_zcf_fast` / `encode_grid_zcf_rows_fast` are
-    reduced-precision encodes for consumers that truncate the encoding to
-    bf16 anyway (the bf16-tier one-kernel steps). Contract: same shapes and
-    differentiability as the exact callables, output (and VJP) within the
-    bf16 tier's 5e-2 relative doctrine of the exact encode. The hash family
-    uses these to run its dense-level resample matmuls at DEFAULT precision
-    instead of HIGHEST (1 MXU pass per dot instead of ~6 — measured as the
-    bf16 NGP fit step's dominant cost); parameter-free families have no
-    matmuls to relax, so fast == exact by fallback.
     """
 
     name: str
@@ -91,12 +68,6 @@ class EncoderFamily:
     schedule_meta: Callable[[Any], dict]
     encode: Callable[..., Any]
     encode_grid: Callable[[Any, Any, Any], Any]
-    encode_grid_zcf: Callable[[Any, Any, Any], Any]
-    encode_grid_zcf_rows: Callable[[Any, Any, Any, Any], Any]
-    encode_grid_zcf_fast: Callable[[Any, Any, Any], Any] | None = None
-    encode_grid_zcf_rows_fast: Callable[[Any, Any, Any, Any], Any] | None = (
-        None
-    )
 
 
 _REGISTRY: dict[type, EncoderFamily] = {}
@@ -149,39 +120,14 @@ def schedule_meta(cfg) -> dict:
     return family_of(cfg).schedule_meta(cfg)
 
 
-def encode(cfg, params, coords, *, allow_large: bool = False):
-    """Pointwise: coords [..., 3] in [0,1] -> [..., out_dim]. allow_large
-    overrides a family's grid-scale guard, if it has one (the hash family's
-    dynamic-gather path keeps its MAX_POINTWISE_POINTS guard)."""
-    return family_of(cfg).encode(cfg, params, coords, allow_large)
+def encode(cfg, params, coords):
+    """Pointwise: coords [..., 3] in [0,1] -> [..., out_dim]."""
+    return family_of(cfg).encode(cfg, params, coords)
 
 
 def encode_grid(cfg, params, g):
     """Regular grid -> [nz, ny, nx, out_dim] (channels-last)."""
     return family_of(cfg).encode_grid(cfg, params, g)
-
-
-def encode_grid_zcf(cfg, params, g, *, fast: bool = False):
-    """Regular grid -> [nz, out_dim, ny, nx] (z-major channel-first, the
-    NGP backward mega-kernel's input layout). `fast=True` requests the
-    family's reduced-precision variant for bf16-tier consumers (falls back
-    to the exact encode when the family registers none — see the
-    EncoderFamily docstring for the fast contract)."""
-    fam = family_of(cfg)
-    if fast and fam.encode_grid_zcf_fast is not None:
-        return fam.encode_grid_zcf_fast(cfg, params, g)
-    return fam.encode_grid_zcf(cfg, params, g)
-
-
-def encode_grid_zcf_rows(cfg, params, g, rows, *, fast: bool = False):
-    """encode_grid_zcf restricted to the given global z rows (bit-identical
-    per row — the sharded step's shard-local encoder contract; under
-    `fast=True`, row-identical to the matching encode_grid_zcf(fast=True)
-    row)."""
-    fam = family_of(cfg)
-    if fast and fam.encode_grid_zcf_rows_fast is not None:
-        return fam.encode_grid_zcf_rows_fast(cfg, params, g, rows)
-    return fam.encode_grid_zcf_rows(cfg, params, g, rows)
 
 
 register_family(
@@ -190,20 +136,8 @@ register_family(
         name="hash",
         init_params=lambda cfg, seed: _hash.init_hash_params(cfg, seed=seed),
         schedule_meta=_hash.schedule_meta,
-        encode=lambda cfg, params, coords, allow_large: _hash.encode(
-            cfg, params, coords, allow_large=allow_large
-        ),
+        encode=_hash.encode,
         encode_grid=_hash.encode_grid,
-        encode_grid_zcf=_hash.encode_grid_zcf,
-        encode_grid_zcf_rows=_hash.encode_grid_zcf_rows,
-        encode_grid_zcf_fast=lambda cfg, params, g: _hash.encode_grid_zcf(
-            cfg, params, g, precision=jax.lax.Precision.DEFAULT
-        ),
-        encode_grid_zcf_rows_fast=lambda cfg, params, g, rows: (
-            _hash.encode_grid_zcf_rows(
-                cfg, params, g, rows, precision=jax.lax.Precision.DEFAULT
-            )
-        ),
     ),
 )
 
@@ -213,15 +147,9 @@ register_family(
         name="fourier",
         init_params=lambda cfg, seed: _fourier.init_params(cfg, seed=seed),
         schedule_meta=_fourier.schedule_meta,
-        encode=lambda cfg, params, coords, allow_large: _fourier.encode(
+        encode=lambda cfg, params, coords: _fourier.encode(
             cfg, coords
         ),
         encode_grid=lambda cfg, params, g: _fourier.encode_grid(cfg, g),
-        encode_grid_zcf=lambda cfg, params, g: _fourier.encode_grid_zcf(
-            cfg, g
-        ),
-        encode_grid_zcf_rows=lambda cfg, params, g, rows: (
-            _fourier.encode_grid_zcf_rows(cfg, g, rows)
-        ),
     ),
 )

@@ -4,7 +4,7 @@ Replicates the reference's mlp_grid pipeline (src/mlp_grid.cpp:53-106):
 grid coords at t-dt, t, t+dt -> MLP inference -> split the 4 output channels
 into sigma [nz,ny,nx] and channel-major u [3,nz,ny,nx].
 
-TPU-first differences:
+Differences from the reference:
   * The three time slices are evaluated as ONE batched MLP call over
     [3, nz, ny, nx, 4] coordinates (the reference launches three separate
     inference passes and re-uploads the weights each time,
@@ -48,9 +48,11 @@ def split_channels(y: jnp.ndarray):
 
 
 def generate_fields(
-    g: GridSpec, cfg: MLPGridConfig, params: mlp.Params, t, dt
+    g: GridSpec, cfg: MLPGridConfig, params: mlp.Params, t, dt,
+    precision: str = "f32",
 ) -> FieldSnapshots:
-    """Fields at t-dt, t, t+dt from one batched MLP evaluation.
+    """Fields at t-dt, t, t+dt from one batched MLP evaluation
+    (`precision`: see mlp.forward).
 
     Reference: mlp_generate_fields_* (src/mlp_grid.cpp:82-106).
     """
@@ -69,7 +71,7 @@ def generate_fields(
         ],
         axis=-1,
     )
-    y = mlp.forward(params, coords)  # [3, nz, ny, nx, 4]
+    y = mlp.forward(params, coords, precision)  # [3, nz, ny, nx, 4]
     sigma, u = split_channels(y)  # [3, nz,ny,nx], [3, 3, nz,ny,nx]
     return FieldSnapshots(
         sigma_tm1=sigma[0],

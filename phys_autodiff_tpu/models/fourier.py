@@ -12,21 +12,17 @@ which counters the spectral bias of plain coordinate MLPs (retrieved
 PAPERS.md: Fourier-feature networks / NeRF positional encoding). It plugs
 into the SAME encoded-field machinery as the hash encoding — the generic
 `models.encoders` dispatch feeds `ngp.NGPFieldConfig(encoding=...)`, the
-decode head, the one-kernel training step (pallas/mega_ngp.py), and the
-sharded per-shard kernel — because everything downstream only consumes an
-[..., out_dim] encoding.
+decode head, the training step and the sharded step — because everything
+downstream only consumes an [..., out_dim] encoding.
 
-TPU-first notes:
+Notes:
   * The encoding has NO parameters (`init_params` returns an empty f32
     array so the params pytree keeps the uniform {"tables", W1, ...}
-    shape; its cotangent is an empty array and the sharded psum skips it).
+    shape; its cotangent is an empty array).
   * On a REGULAR grid every channel is a function of ONE axis coordinate:
-    `encode_grid*` build three tiny per-axis feature matrices ([n, C] with
-    C = include_input + 2K) and broadcast — no grid-sized transcendentals,
+    `encode_grid` builds three tiny per-axis feature matrices ([n, C] with
+    C = include_input + 2K) and broadcasts — no grid-sized transcendentals,
     bit-identical to the pointwise path on the same f32 coordinates.
-  * The z features are per-row separable, so the shard-local row subset
-    (`encode_grid_zcf_rows`) is exact and free — the sharded NGP step's
-    pre-extended halo contract holds with zero communication.
 """
 
 from __future__ import annotations
@@ -62,8 +58,8 @@ class FourierEncodingConfig:
 def init_params(cfg: FourierEncodingConfig, seed: int = 0):
     """The encoding is analytic — no parameters. An empty f32 array keeps
     the encoded-field params pytree uniform across encoder families (the
-    optimizer, checkpointing, and the kernels' `params["tables"]` access
-    all see the same structure)."""
+    optimizer, checkpointing, and every `params["tables"]` access all see
+    the same structure)."""
     del seed
     return jnp.zeros((0,), jnp.float32)
 
@@ -81,7 +77,7 @@ def schedule_meta(cfg: FourierEncodingConfig) -> dict:
 def _axis_features(cfg: FourierEncodingConfig, v: jnp.ndarray) -> jnp.ndarray:
     """Per-axis feature stack: v [...] -> [..., axis_dim]. The frequencies
     are trace-time f32 constants; sin/cos run on the same f32 coordinate
-    values everywhere (pointwise == grid == row-subset, bit-identical)."""
+    values everywhere (pointwise == grid, bit-identical)."""
     v = v.astype(jnp.float32)
     feats = []
     if cfg.include_input:
@@ -132,48 +128,4 @@ def encode_grid(cfg: FourierEncodingConfig, g) -> jnp.ndarray:
             jnp.broadcast_to(fz[:, None, None, :], (nz, ny, nx, c)),
         ],
         axis=-1,
-    )
-
-
-def encode_grid_zcf(cfg: FourierEncodingConfig, g) -> jnp.ndarray:
-    """encode_grid in the z-major channel-first [nz, out_dim, ny, nx]
-    layout the NGP backward mega-kernel consumes (== moveaxis(-1, 1) of
-    encode_grid, built directly from the axis vectors)."""
-    nz, ny, nx = g.shape
-    fx, fy, fz = _axis_vectors(cfg, g)
-    c = cfg.axis_dim
-    return jnp.concatenate(
-        [
-            jnp.broadcast_to(fx.T[None, :, None, :], (nz, c, ny, nx)),
-            jnp.broadcast_to(fy.T[None, :, :, None], (nz, c, ny, nx)),
-            jnp.broadcast_to(fz[:, :, None, None], (nz, c, ny, nx)),
-        ],
-        axis=1,
-    )
-
-
-def encode_grid_zcf_rows(
-    cfg: FourierEncodingConfig, g, rows: jnp.ndarray
-) -> jnp.ndarray:
-    """encode_grid_zcf restricted to the given global z rows (traced int
-    vector) -> [len(rows), out_dim, ny, nx]. Only the z features vary per
-    row; gathering the z coordinate at `rows` before the sin/cos keeps
-    each produced row bit-identical to the matching full row (the sharded
-    NGP step's shard-local-encoder contract)."""
-    from phys_autodiff_tpu.models.coords import _axis_coord
-    from phys_autodiff_tpu.utils.config import CoordNorm
-
-    nz, ny, nx = g.shape
-    k = rows.shape[0]
-    fx, fy, _ = _axis_vectors(cfg, g)
-    cz = _axis_coord(g.nz, CoordNorm.ZeroToOne)
-    fz_rows = _axis_features(cfg, jnp.take(cz, rows))  # [K, C]
-    c = cfg.axis_dim
-    return jnp.concatenate(
-        [
-            jnp.broadcast_to(fx.T[None, :, None, :], (k, c, ny, nx)),
-            jnp.broadcast_to(fy.T[None, :, :, None], (k, c, ny, nx)),
-            jnp.broadcast_to(fz_rows[:, :, None, None], (k, c, ny, nx)),
-        ],
-        axis=1,
     )

@@ -5,9 +5,9 @@ Reference behavior replicated (include/mlp.h:5-9, src/mlp_cpu.cpp:14-36):
 with a seeded uniform(-scale, scale) initializer (src/mlp_grid.cpp:8-19,
 defaults seed=42, scale=0.5).
 
-TPU-first differences from the reference (deliberate, documented):
+Differences from the reference (deliberate, documented):
   * Weight layout is [In, H] / [H, Out] (right-multiplication, batch on the
-    MXU sublane axis) instead of the reference's row-major [H, In] / [Out, H]
+    leading axis) instead of the reference's row-major [H, In] / [Out, H]
     left-multiplication (src/mlp_cpu.cpp:15). `to_reference_layout` /
     `from_reference_layout` give the exact bijection (a transpose).
   * Initialization uses numpy's MT19937 generator seeded identically across
@@ -45,7 +45,7 @@ def init_params(
         )
 
     # Draw in reference layout order ([H,In] then [Out,H]) and transpose to
-    # the TPU layout, so the same seed yields the same multiset of weights.
+    # this layout, so the same seed yields the same multiset of weights.
     w1 = draw(dims.H, dims.In).T  # [In, H]
     b1 = draw(dims.H)
     w2 = draw(dims.Out, dims.H).T  # [H, Out]
@@ -54,7 +54,7 @@ def init_params(
 
 
 def to_reference_layout(params: Params) -> dict[str, np.ndarray]:
-    """TPU layout -> reference row-major layout (include/mlp_grid.h:19-24):
+    """This layout -> reference row-major layout (include/mlp_grid.h:19-24):
     W1 [H, In] flattened, b1 [H], W2 [Out, H] flattened, b2 [Out]."""
     return {
         "W1": np.asarray(params["W1"]).T.copy(),
@@ -73,12 +73,17 @@ def from_reference_layout(ref: dict[str, np.ndarray]) -> Params:
     }
 
 
-def forward(params: Params, x: jnp.ndarray) -> jnp.ndarray:
+def forward(params: Params, x: jnp.ndarray, precision: str = "f32") -> jnp.ndarray:
     """y = relu(x @ W1 + b1) @ W2 + b2.  x: [..., In] -> y: [..., Out].
 
-    float32 MXU matmuls (precision pinned to HIGHEST so the f32 parity
-    tolerances of the test ladder hold on TPU).
+    "f32": both matmuls in IEEE float32 (precision pinned to HIGHEST, so no
+    TF32, which the f32 parity tolerances of the test ladder need).
+    "bf16": layer 2 takes bf16 operands with f32 accumulation; layer 1
+    stays f32 (the arithmetic of the kernel pair's bf16 tier,
+    pallas/fieldgen.py).
     """
+    if precision not in ("f32", "bf16"):
+        raise ValueError(f"precision {precision!r}: expected 'f32' or 'bf16'")
     z1 = (
         jnp.dot(
             x,
@@ -89,10 +94,13 @@ def forward(params: Params, x: jnp.ndarray) -> jnp.ndarray:
         + params["b1"]
     )
     a1 = jnp.maximum(z1, 0.0)
+    w2 = params["W2"]
+    if precision == "bf16":
+        a1, w2 = a1.astype(jnp.bfloat16), w2.astype(jnp.bfloat16)
     return (
         jnp.dot(
             a1,
-            params["W2"],
+            w2,
             precision=jax.lax.Precision.HIGHEST,
             preferred_element_type=jnp.float32,
         )

@@ -7,7 +7,7 @@ closes the remaining gap for tooling (the CLI, serving scripts, model
 exchange): `save_model` embeds the GridSpec and the full model config in
 the checkpoint manifest, and `load_model` reconstructs (GridSpec, config,
 params) from the file ALONE. The encoding-schedule fingerprint
-(ngp.checkpoint_meta, round-2 ADVICE #2) rides the same manifest, so a
+(ngp.checkpoint_meta) rides the same manifest, so a
 schedule mismatch between the writer's code and the reader's code still
 fails loudly.
 

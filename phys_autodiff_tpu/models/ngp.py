@@ -16,7 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from phys_autodiff_tpu.models import encoders, hash_encoder
+from phys_autodiff_tpu.models import encoders
 from phys_autodiff_tpu.models.hash_encoder import HashEncodingConfig
 from phys_autodiff_tpu.ops.stencil import FieldSnapshots
 from phys_autodiff_tpu.utils.config import GridSpec
@@ -66,11 +66,9 @@ def _apply_head(params: dict, enc: jnp.ndarray, t):
     its semantics live (time channel concat, relu, f32-accumulated dots)."""
     t_chan = jnp.broadcast_to(jnp.float32(t), enc.shape[:-1] + (1,))
     h = jnp.concatenate([enc, t_chan], axis=-1)
-    # HIGHEST: on TPU the DEFAULT matmul precision runs bf16-class passes,
-    # which would silently demote this f32 reference path (discovered in
-    # round 3 when the NGP mega-kernel, which pins HIGHEST, "failed" parity
-    # against it on hardware by exactly one bf16 class). Same doctrine as
-    # the coordinate MLP's pinned matmuls.
+    # HIGHEST: the DEFAULT matmul precision may run f32 dots as TF32 on a
+    # GPU (about three decimal digits), which would silently demote this f32
+    # reference path. Same doctrine as the coordinate MLP's pinned matmuls.
     a1 = jnp.maximum(
         jnp.dot(h, params["W1"], preferred_element_type=jnp.float32,
                 precision=jax.lax.Precision.HIGHEST)
@@ -89,18 +87,18 @@ def _head_base(params: dict, enc: jnp.ndarray, precision: str = "f32"):
     the LAST input channel (see _apply_head's concat), so it enters layer 1
     only as the rank-1 term t * W1[-1]: one [N, L*F] x [L*F, H] matmul
     serves all three time slices (the NGP analogue of the coordinate MLP's
-    CD-table folding, pallas/mlp.py fold_cd).
+    rank-1 layer-1 folding).
 
-    precision="bf16": bf16 matmul operands with f32 accumulation — the 2x
-    MXU-rate mixed tier (same 1e-3-class doctrine as the coordinate MLP's
-    bf16 fieldgen; the encoder stays exact f32)."""
+    precision="bf16": bf16 matmul operands with f32 accumulation — the
+    mixed tier (same doctrine as the coordinate MLP's bf16 field generator;
+    the encoder stays exact f32)."""
     w1 = params["W1"][:-1]
     if precision == "bf16":
         enc, w1 = enc.astype(jnp.bfloat16), w1.astype(jnp.bfloat16)
     prec = (
         jax.lax.Precision.DEFAULT
         if precision == "bf16"
-        else jax.lax.Precision.HIGHEST  # f32 tier: TPU DEFAULT is bf16-class
+        else jax.lax.Precision.HIGHEST  # f32 tier: no TF32
     )
     return (
         jnp.dot(enc, w1, preferred_element_type=jnp.float32, precision=prec)
@@ -128,18 +126,11 @@ def _head_from_base(params: dict, base: jnp.ndarray, t, precision: str = "f32"):
     )
 
 
-def forward(
-    cfg: NGPFieldConfig, params: dict, coords: jnp.ndarray, t, *,
-    allow_large: bool = False,
-):
+def forward(cfg: NGPFieldConfig, params: dict, coords: jnp.ndarray, t):
     """coords: [..., 3] spatial in [0, 1]; t: scalar. Returns [..., out].
 
-    Pointwise path — guarded against grid-scale batches (it has wedged the
-    TPU worker; see hash_encoder.MAX_POINTWISE_POINTS). Use grid_infer /
-    generate_fields for regular grids."""
-    enc = encoders.encode(
-        cfg.encoding, params["tables"], coords, allow_large=allow_large
-    )
+    Pointwise path; grid_infer / generate_fields serve regular grids."""
+    enc = encoders.encode(cfg.encoding, params["tables"], coords)
     return _apply_head(params, enc, t)
 
 
@@ -147,7 +138,7 @@ def checkpoint_meta(cfg: NGPFieldConfig) -> dict:
     """Metadata to embed when checkpointing NGP params (see
     train.checkpoint.save_npz(meta=...)): detects encoding-schedule or
     dense-level mismatches on restore instead of decoding silently-different
-    fields (round-2 ADVICE #2)."""
+    fields."""
     return {"ngp_encoding": encoders.schedule_meta(cfg.encoding)}
 
 
@@ -180,59 +171,6 @@ def grid_infer(g: GridSpec, cfg: NGPFieldConfig, params: dict, t):
     dynamic gathers; Fourier encodings broadcast per-axis features."""
     enc = encoders.encode_grid(cfg.encoding, params["tables"], g)
     return _apply_head(params, enc, t)
-
-
-def _head_from_base_cf(params: dict, base, t, precision: str = "f32"):
-    """Channel-FIRST decode-head finish: [4, nz, ny, nx] directly from the
-    shared layer-1 base — one dot_general with the output channel axis
-    leading, so no channels-last [..., 4] tensor ever exists (the
-    [nz,ny,nx,4] -> plane moveaxis was a measured ~ms-class relayout tax in
-    the NGP train step, paid again transposed in the backward)."""
-    z1 = base + jnp.float32(t) * params["W1"][-1]
-    a1 = jnp.maximum(z1, 0.0)
-    w2t = params["W2"].T  # [4, H]
-    if precision == "bf16":
-        a1, w2t = a1.astype(jnp.bfloat16), w2t.astype(jnp.bfloat16)
-    out = jax.lax.dot_general(
-        w2t, a1,
-        dimension_numbers=(((1,), (3,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=(
-            jax.lax.Precision.DEFAULT
-            if precision == "bf16"
-            else jax.lax.Precision.HIGHEST
-        ),
-    )  # [4, nz, ny, nx]
-    return out + params["b2"][:, None, None, None]
-
-
-def generate_fields_packed(
-    g: GridSpec, cfg: NGPFieldConfig, params: dict, t, dt,
-    precision: str = "f32",
-) -> jnp.ndarray:
-    """Fields at (t-dt, t, t+dt) DIRECTLY in the packed [12, nz, ny, nx]
-    layout the fused physics-loss kernels consume (residuals.PACKED_ORDER:
-    three sigma slices, then u_tm1/u_t/u_tp1 component-major).
-
-    Same math as generate_fields + pack_fields, but the decode heads emit
-    channel-first (see _head_from_base_cf) and the slices assemble with
-    leading-axis concats only — no FieldSnapshots, no [..., 4] moveaxis, no
-    pack-time restack. This is the NGP fast path for training on real
-    accelerators (train.make_generic_train_step feeds it to
-    loss_forward_fused_packed)."""
-    enc = encoders.encode_grid(cfg.encoding, params["tables"], g)
-    base = _head_base(params, enc, precision)
-    t = jnp.float32(t)
-    dt = jnp.float32(dt)
-    ys = [
-        _head_from_base_cf(params, base, tt, precision)
-        for tt in (t - dt, t, t + dt)
-    ]
-    return jnp.concatenate(
-        [ys[0][0:1], ys[1][0:1], ys[2][0:1], ys[0][1:4], ys[1][1:4],
-         ys[2][1:4]],
-        axis=0,
-    )
 
 
 def generate_fields(

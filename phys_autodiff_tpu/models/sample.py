@@ -85,8 +85,8 @@ def mlp_eval_points(
     models.fields.grid_infer exactly (same coordinate rows, same
     pinned-precision matmuls). precision="bf16": bf16 matmul operands
     with f32 accumulation — the framework's standard mixed tier
-    (1e-3-class error, ~2x MXU rate; the serving fast path for
-    throughput-bound consumers like particle advection)."""
+    (1e-3-class error; the serving fast path for throughput-bound
+    consumers like particle advection)."""
     x = point_coords(pts_unit, t, cfg.norm)
     if precision == "f32":
         return mlp.forward(params, x)
@@ -102,19 +102,13 @@ def mlp_eval_points(
     ) + params["b2"]
 
 
-def ngp_eval_points(
-    ncfg, params: dict, pts_unit: jnp.ndarray, t, *, allow_large: bool = False
-) -> jnp.ndarray:
+def ngp_eval_points(ncfg, params: dict, pts_unit: jnp.ndarray, t) -> jnp.ndarray:
     """Encoded-field (NGP/Fourier/any registered family) evaluation at
     arbitrary unit-cube points: [..., out]. Thin alias of models.ngp.forward
-    so both model families serve through one module.
-
-    The hash family's pointwise encoder keeps its grid-scale guard
-    (hash_encoder.MAX_POINTWISE_POINTS); batch point queries accordingly or
-    pass allow_large=True deliberately."""
+    so both model families serve through one module."""
     from phys_autodiff_tpu.models import ngp as ngp_mod
 
-    return ngp_mod.forward(ncfg, params, pts_unit, t, allow_large=allow_large)
+    return ngp_mod.forward(ncfg, params, pts_unit, t)
 
 
 def evaluate_points(model_cfg, params, pts_unit, t, precision="f32", **kw):
@@ -163,10 +157,8 @@ def evaluate_points_batched(
 ):
     """evaluate_points over arbitrarily many points with bounded per-step
     memory: chunks of `batch_size` run under lax.map (one compiled body,
-    sequential chunks), so P can exceed both device-memory comfort and the
-    hash family's pointwise-encoder guard (each chunk stays under
-    hash_encoder.MAX_POINTWISE_POINTS when batch_size does — the default
-    64K is 4x under it). pts_unit: [P, 3]; returns [P, 4]."""
+    sequential chunks), so P can exceed device-memory comfort.
+    pts_unit: [P, 3]; returns [P, 4]."""
     p = pts_unit.shape[0]
     if p <= batch_size:
         return evaluate_points(model_cfg, params, pts_unit, t, **kw)
@@ -215,13 +207,9 @@ def trilinear_sample(
 
     Boundary behavior follows g.periodic (wrap with period n / clamp),
     matching the stencil operators' topology. The 8 corner reads compile to
-    flat one-axis gathers — the least-bad form of scattered access on TPU,
-    but still gather-bound: measured ~11.5M point-queries/s at 1M points on
-    the flagship grid vs 278M/s for direct MXU model re-evaluation
-    (scripts/advect_bench.py; promise_in_bounds made no difference — the
-    gather lowering, not the bounds check, is the limit). Prefer direct
-    model evaluation when a model exists; use this for model-free grid
-    data."""
+    flat one-axis gathers. Direct model evaluation (evaluate_points) is the
+    alternative when a model exists; scripts/advect_bench.py times the two
+    (on the H100 not measured yet). Use this for model-free grid data."""
     ch_shape = values.shape[:-3]
     nz, ny, nx = values.shape[-3:]
     assert (nz, ny, nx) == g.shape, (values.shape, g.shape)

@@ -29,9 +29,9 @@ solenoidal velocity field in the continuum sense — the grid route and the
 point route agree to the stencil's O(h^2) truncation, and each is exactly
 divergence-free under its OWN divergence notion (discrete / continuous).
 
-TPU notes: the grid path adds six stencil shifts on top of grid inference
+Cost: the grid path adds six stencil shifts on top of grid inference
 (pure rolls, fused by XLA); the point path evaluates the model under
-jacfwd — 3 extra tangent passes, still batched MXU matmuls, no gathers.
+jacfwd — 3 extra tangent passes, still batched matmuls, no gathers.
 """
 
 from __future__ import annotations
@@ -120,7 +120,7 @@ def eval_points_solenoidal(
     divergence-free (div curl = 0 holds for exact derivatives, and
     autodiff derivatives ARE exact derivatives of the network function).
     Differentiable in params; O(3x) the plain evaluation cost (one
-    forward + 3 forward-mode tangents, all batched MXU work)."""
+    forward + 3 forward-mode tangents, all batched matmul work)."""
     from phys_autodiff_tpu.models.sample import evaluate_points
 
     pts_unit = jnp.asarray(pts_unit, jnp.float32)
@@ -137,7 +137,7 @@ def eval_points_solenoidal(
         return evaluate_points(model_cfg, params, pu, t, precision)
 
     # one forward-mode tangent pass per spatial axis, batched over ALL
-    # points at once (each jvp is ~1 extra MXU-batched forward); the
+    # points at once (each jvp is ~1 extra batched forward); the
     # primal comes from the first jvp for free — total cost is exactly
     # the docstring's one forward + 3 tangents. dA[a][:, c] = dA_c / dx_a
     y = None

@@ -55,12 +55,11 @@ def loss_forward_f64(g: GridSpec, w: PhysWeights, fields: FieldSnapshots):
 def plane_partials(r_sigma, r_u):
     """Per-z-plane raw partial sums [2, nz] of the residual squares.
 
-    The deterministic-reduction building block shared by the fused loss
-    kernel (pallas/residuals.py emits the same per-plane partials in-kernel)
-    and the sharded loss: per-plane sums are computed by identical local
-    programs on any mesh, and the final combination is an explicit
-    fixed-order chain (`sum_partials`), so sharded == single-chip at the
-    1e-7 doctrine instead of the 1e-4 of an order-free psum."""
+    The deterministic-reduction building block of the sharded loss:
+    per-plane sums are computed by identical local programs on any mesh,
+    and the final combination is an explicit fixed-order chain
+    (`sum_partials`), so sharded == single-chip at the 1e-7 doctrine
+    instead of the 1e-4 of an order-free psum."""
     ps = jnp.sum(r_sigma * r_sigma, axis=(-2, -1))
     pu = jnp.sum(r_u * r_u, axis=(0, -2, -1))
     return jnp.stack([ps, pu])

@@ -16,7 +16,7 @@ Three surfaces:
     lap p = div u uses lap(k) = -sum_a sin^2(k_a h_a)/h_a^2 and the
     projected field's discrete divergence is zero to float rounding at
     every Fourier mode (modes where lap(k)=0 have div(k)=0 identically,
-    since each sin factor is then 0). TPU-first: three rfftn/irfftn pairs
+    since each sin factor is then 0). Three rfftn/irfftn pairs
     and elementwise work — all XLA-native, no iteration, no gathers.
   * `project_cg(g, u, ...)` — clamp (non-periodic) boxes, where no fast
     diagonalization of the clamped wide stencil exists: iterative
@@ -34,7 +34,7 @@ Three surfaces:
     half of the reference's sentence.
 
 All paths are pure jnp on the framework layouts (u channel-major
-[3, nz, ny, nx], x on lanes), fully differentiable, and fuse under jit.
+[3, nz, ny, nx], x fastest), fully differentiable, and fuse under jit.
 
 Null-space note (wide stencil): the central difference annihilates the
 Nyquist mode per axis, so components of u invisible to the discrete div

@@ -9,8 +9,8 @@ true field adjoint (the stencil transpose) that the reference never
 implemented (its backward stops at the residual-space VJP,
 include/phys.h:54).
 
-Layout: scalar fields [nz, ny, nx]; vector fields [3, nz, ny, nx]; x rides
-the TPU lane dimension.
+Layout: scalar fields [nz, ny, nx]; vector fields [3, nz, ny, nx]; x is the
+fastest-varying axis (the reference's flat layout).
 """
 
 from __future__ import annotations

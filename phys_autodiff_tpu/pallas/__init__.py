@@ -1,59 +1,5 @@
-from phys_autodiff_tpu.pallas.residuals import (
-    residuals_fused,
-    residuals_fused_packed,
-    loss_backward_fused,
-    loss_forward_fused,
-    loss_forward_fused_packed,
-    pack_fields,
-    unpack_fields,
-    pick_slab_size,
-    PACKED_ORDER,
-    residuals_fused_flat,
-    loss_forward_fused_flat,
-    loss_backward_fused_flat,
-    pack_fields_flat,
-    flat_to_grid,
-    grid_to_flat,
-    flat_rows,
-    residuals_fused_padlanes,
-    loss_forward_fused_padlanes,
-    pack_fields_pad,
-    pad_to_grid,
-    padded_px,
-)
-from phys_autodiff_tpu.pallas.mlp import (
-    generate_fields_fused,
-    generate_fields_fused_packed,
-    generate_fields_fused_flat,
-    grid_infer_fused,
-    fused_loss_pipeline,
-)
+"""Hand-written Pallas kernels, on the Triton route (backend="triton").
 
-__all__ = [
-    "residuals_fused",
-    "residuals_fused_packed",
-    "loss_backward_fused",
-    "loss_forward_fused",
-    "loss_forward_fused_packed",
-    "pack_fields",
-    "unpack_fields",
-    "pick_slab_size",
-    "PACKED_ORDER",
-    "residuals_fused_flat",
-    "loss_forward_fused_flat",
-    "loss_backward_fused_flat",
-    "pack_fields_flat",
-    "flat_to_grid",
-    "grid_to_flat",
-    "flat_rows",
-    "residuals_fused_padlanes",
-    "loss_forward_fused_padlanes",
-    "pack_fields_pad",
-    "pad_to_grid",
-    "padded_px",
-    "generate_fields_fused",
-    "generate_fields_fused_packed",
-    "generate_fields_fused_flat",
-    "grid_infer_fused",
-    "fused_loss_pipeline",
-]
+fieldgen: the coordinate-MLP field generator as a forward/backward pair
+that recomputes the hidden activation instead of storing it.
+"""

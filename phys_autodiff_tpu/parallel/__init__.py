@@ -9,8 +9,8 @@ from phys_autodiff_tpu.parallel.mesh import (
 )
 from phys_autodiff_tpu.parallel.sharded import (
     residuals_sharded,
-    residuals_fused_sharded,
-    loss_forward_fused_sharded,
+    residuals_halo_sharded,
+    loss_forward_halo_sharded,
     make_sharded_train_step,
     make_sharded_fused_train_step,
     make_sharded_train_step_2d,
@@ -26,8 +26,8 @@ __all__ = [
     "scalar_spec",
     "vector_spec",
     "residuals_sharded",
-    "residuals_fused_sharded",
-    "loss_forward_fused_sharded",
+    "residuals_halo_sharded",
+    "loss_forward_halo_sharded",
     "make_sharded_train_step",
     "make_sharded_fused_train_step",
     "make_sharded_train_step_2d",

@@ -4,17 +4,17 @@ Two arms, mirroring the single-chip staged/fused split:
 
   * GSPMD path (`residuals_sharded`, `make_sharded_train_step`): jit with
     NamedSharding constraints over the staged ops. XLA's partitioner turns
-    the z-axis jnp.roll stencils into collective-permutes over ICI and the
-    loss mean into a psum — the idiomatic "annotate and let XLA insert
-    collectives" recipe. Fully differentiable, so the sharded training step
-    is just value_and_grad of the sharded loss (weight-gradient all-reduce
-    falls out of the partitioner).
+    the z-axis jnp.roll stencils into collective-permutes (NCCL on a GPU
+    mesh) and the loss mean into a psum — the idiomatic "annotate and let
+    XLA insert collectives" recipe. Fully differentiable, so the sharded
+    training step is just value_and_grad of the sharded loss
+    (weight-gradient all-reduce falls out of the partitioner).
 
-  * shard_map path (`residuals_fused_sharded`): explicit spatial domain
-    decomposition — each device runs the fused Pallas kernel on its local
-    z-slab extended by halo planes exchanged with lax.ppermute. This is the
-    TPU-native analogue of multi-GPU stencil halo exchange, and the arm that
-    keeps the Pallas kernels in play on a mesh.
+  * shard_map path (`residuals_halo_sharded`, `loss_forward_halo_sharded`,
+    `make_sharded_fused_train_step`): explicit spatial domain
+    decomposition — each device works on its local z-slab extended by halo
+    planes (exchanged with lax.ppermute, or recomputed from the replicated
+    model in the fused step), the multi-GPU stencil halo exchange.
 
 Both are validated against the single-device results by tests/test_sharding
 on a CPU mesh (the standard JAX way to test multi-chip without a cluster).
@@ -31,7 +31,8 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 from phys_autodiff_tpu import ops
 from phys_autodiff_tpu.models import fields as fields_mod
-from phys_autodiff_tpu.ops.stencil import FieldSnapshots
+from phys_autodiff_tpu.ops.loss import plane_partials, sum_partials
+from phys_autodiff_tpu.ops.stencil import FieldSnapshots, residuals_zext
 from phys_autodiff_tpu.parallel.mesh import (
     Z_AXIS,
     field_shardings,
@@ -160,16 +161,28 @@ def _halo_extend_fields(fs_local: FieldSnapshots, periodic: bool) -> FieldSnapsh
     )
 
 
-def residuals_fused_sharded(g: GridSpec, mesh, fields: FieldSnapshots, interpret=None):
-    """Fused Pallas residuals under explicit z-domain decomposition.
+def _halo_map(local, mesh, out_specs):
+    return jax.shard_map(
+        local,
+        mesh=mesh,
+        in_specs=(FieldSnapshots(
+            sigma_tm1=scalar_spec(), sigma_t=scalar_spec(), sigma_tp1=scalar_spec(),
+            u_tm1=vector_spec(), u_t=vector_spec(), u_tp1=vector_spec(),
+        ),),
+        out_specs=out_specs,
+        check_vma=False,  # the gathered loss partials are replicated by
+        # construction (all_gather), which the checker cannot infer
+    )
 
-    Each device extends its local slab with exchanged halo planes, then runs
-    the single-chip fused kernel on the extended slab (the halos make the
-    local z edges produce exactly the interior/wrap global stencil) and
-    drops the halo rows of the result.
+
+def residuals_halo_sharded(g: GridSpec, mesh, fields: FieldSnapshots):
+    """Residuals under explicit z-domain decomposition.
+
+    Each device extends its local slab with exchanged halo planes, runs the
+    single-chip residual op on the extended slab (the halos make the local z
+    edges produce exactly the interior/wrap global stencil) and drops the
+    halo rows of the result.
     """
-    from phys_autodiff_tpu.pallas.residuals import residuals_fused
-
     n_shards = mesh.shape[Z_AXIS]  # NOT devices.size: multi-axis meshes
     assert g.nz % n_shards == 0, (
         f"nz={g.nz} must divide evenly over the {n_shards}-way '{Z_AXIS}' axis"
@@ -178,34 +191,25 @@ def residuals_fused_sharded(g: GridSpec, mesh, fields: FieldSnapshots, interpret
 
     def local(fs_local: FieldSnapshots):
         ext = _halo_extend_fields(fs_local, g.periodic)
-        rs, ru = residuals_fused(g_local, ext, interpret)
+        rs, ru = ops.residuals(g_local, ext)
         return rs[1:-1], ru[:, 1:-1]
 
-    return jax.shard_map(
-        local,
-        mesh=mesh,
-        check_vma=False,  # pallas_call outputs carry no vma metadata
-        in_specs=(FieldSnapshots(
-            sigma_tm1=scalar_spec(), sigma_t=scalar_spec(), sigma_tp1=scalar_spec(),
-            u_tm1=vector_spec(), u_t=vector_spec(), u_tp1=vector_spec(),
-        ),),
-        out_specs=(scalar_spec(), vector_spec()),
-    )(fields)
+    return _halo_map(local, mesh, (scalar_spec(), vector_spec()))(fields)
 
 
-def loss_forward_fused_sharded(
-    g: GridSpec, w: PhysWeights, mesh, fields: FieldSnapshots, interpret=None
+def loss_forward_halo_sharded(
+    g: GridSpec, w: PhysWeights, mesh, fields: FieldSnapshots
 ):
-    """Fused loss forward on the mesh: ppermute halo exchange + the per-shard
-    fused Pallas loss kernel (in-kernel per-plane partial reduction), then a
-    FIXED-ORDER reduction of the gathered [2, nz] per-plane partials.
+    """Loss forward on the mesh: ppermute halo exchange, per-shard raw
+    per-plane partial sums, then a FIXED-ORDER reduction of the gathered
+    [2, nz] partials.
 
     Determinism/parity: each z-plane's partial is computed by the same
-    kernel program as on a single chip, and the final sum is an explicit
-    sequential chain over planes in global z order — identical association
-    on any mesh size, so the sharded loss meets the single-chip loss at the
-    1e-7 doctrine rather than the 1e-4 of an unconstrained psum.
-    Returns (L_sigma, L_u).
+    program as on a single chip (ops.loss.loss_forward_planewise), and the
+    final sum is an explicit sequential chain over planes in global z order
+    — identical association on any mesh size, so the sharded loss meets the
+    single-chip loss at the 1e-7 doctrine rather than the 1e-4 of an
+    unconstrained psum. Returns (L_sigma, L_u).
     """
     n_shards = mesh.shape[Z_AXIS]
     assert g.nz % n_shards == 0
@@ -213,40 +217,12 @@ def loss_forward_fused_sharded(
 
     def local(fs_local: FieldSnapshots):
         ext = _halo_extend_fields(fs_local, g.periodic)
-        # Raw (unscaled, unweighted) per-plane partial sums on the extended
-        # slab; the halo planes' partials are dropped and scaling/weights
-        # are applied once, globally, by sum_partials below.
-        parts = _fused_plane_partials(g_local, ext, interpret)  # [2, nz_local+2]
-        parts = parts[:, 1:-1]
-        gathered = jax.lax.all_gather(parts, Z_AXIS, axis=1, tiled=True)  # [2, nz]
-        return gathered
+        rs, ru = ops.residuals(g_local, ext)
+        parts = plane_partials(rs[1:-1], ru[:, 1:-1])  # [2, nz_local]
+        return jax.lax.all_gather(parts, Z_AXIS, axis=1, tiled=True)
 
-    gathered = jax.shard_map(
-        local,
-        mesh=mesh,
-        check_vma=False,
-        in_specs=(FieldSnapshots(
-            sigma_tm1=scalar_spec(), sigma_t=scalar_spec(), sigma_tp1=scalar_spec(),
-            u_tm1=vector_spec(), u_t=vector_spec(), u_tp1=vector_spec(),
-        ),),
-        out_specs=P(),
-    )(fields)
-
-    # Explicit sequential chain over global z order — association fixed
-    # regardless of mesh size.
-    from phys_autodiff_tpu.ops.loss import sum_partials
-
+    gathered = _halo_map(local, mesh, P())(fields)
     return sum_partials(g, w, gathered)
-
-
-def _fused_plane_partials(g_local: GridSpec, ext: FieldSnapshots, interpret):
-    """RAW per-plane partial sums [2, nz_local+2] straight from the fused
-    loss kernel (scales=None, reduce_loss=True): no 1/N normalization and
-    no loss weights are applied here — both happen exactly once in the
-    caller's global fixed-order sum_partials."""
-    from phys_autodiff_tpu.pallas import residuals as pr
-
-    return pr._run_fused(g_local, ext, None, True, interpret)
 
 
 def make_sharded_fused_train_step(
@@ -256,104 +232,73 @@ def make_sharded_fused_train_step(
     mesh,
     learning_rate: float = 1e-3,
     precision: str = "f32",
-    sz: int | None = None,
-    backward: str = "auto",
 ):
     """The sharded FUSED training step: z rows are partitioned contiguously
-    over the mesh's z axis and each device computes its range's gradient
-    with everything recomputed locally (halo rows come from the replicated
-    MLP rather than a ppermute — cheaper than exchanging 8 planes for
-    MLP-generated fields); gradients are psum'd and the loss combined from
-    all-gathered per-plane/per-slab partials in a fixed order.
-
-    backward="mega" (or "auto" on supported grids — pallas/mega_bwd.py's
-    mega_supported) runs the fused backward MEGA-kernel per shard (ONE
-    kernel per device for loss + all gradients); backward="slab" scans the
-    slab-blocked recompute gradient (train/slab_grad.py), which also serves
-    upwind and unaligned configurations. sz is the slab arm's z-block size;
-    passing it explicitly under backward="auto" selects the slab arm (the
-    mega kernel has no slab knob, so a tuning request must not silently
-    no-op).
-
-    Memory: nothing grid-sized materializes on any device — this is the
-    path past the single-chip ceiling AND the per-device ceiling.
+    over the mesh's z axis and each device generates its rows plus one
+    recomputed halo row per side with the kernel pair (pallas/fieldgen.py,
+    from the replicated params — cheaper than exchanging 12 planes), so
+    nothing of size [N, H] exists on any device. Per-device gradients are
+    psum'd; the loss is combined from all-gathered per-plane partials in
+    a fixed order (the association of ops.loss.loss_forward_planewise).
 
     Returns (step_fn, init_fn): step(params, opt_state, t) ->
     (params', opt_state', loss).
     """
     import optax
 
-    from phys_autodiff_tpu.pallas.mega_bwd import mega_supported
-    from phys_autodiff_tpu.train.slab_grad import make_slab_raw
+    from phys_autodiff_tpu.pallas import fieldgen
 
     opt = optax.adam(learning_rate)
     rep = NamedSharding(mesh, P())
-
-    def make_step_and_init(loss_and_grad):
-        @partial(jax.jit, donate_argnums=(0, 1))
-        def step(params, opt_state, t):
-            loss, grads = loss_and_grad(params, t)
-            updates, opt_state = opt.update(grads, opt_state, params)
-            params = optax.apply_updates(params, updates)
-            return params, opt_state, loss
-
-        def init(params):
-            params = jax.device_put(params, rep)
-            return params, jax.device_put(opt.init(params), rep)
-
-        return step, init
-
-    use_mega = backward == "mega" or (
-        backward == "auto" and sz is None and mega_supported(g)
-    )
-    if use_mega:
-        from phys_autodiff_tpu.pallas.mega_bwd import mega_loss_and_grad_sharded
-
-        mega_lg = mega_loss_and_grad_sharded(g, w, mcfg, mesh, precision)
-
-        def mega_loss_grad(params, t):
-            loss, (grads, _) = mega_lg(params, t)
-            return loss, grads
-
-        return make_step_and_init(mega_loss_grad)
-    slab_raw, sz = make_slab_raw(g, w, mcfg, sz, precision)
-    n_slabs = g.nz // sz
     n_shards = mesh.shape[Z_AXIS]
-    assert n_slabs % n_shards == 0, (
-        f"{n_slabs} slabs (sz={sz}) must divide over {n_shards} shards"
+    assert g.nz % n_shards == 0, (
+        f"nz={g.nz} must divide evenly over the {n_shards}-way '{Z_AXIS}' axis"
     )
-    per_shard = n_slabs // n_shards
+    nz_local = g.nz // n_shards
     inv_n = np.float32(1.0 / g.num_cells)
-    vg = jax.value_and_grad(slab_raw, argnums=0)
+    ct = np.asarray([[w.w_sigma], [w.w_u]], np.float32) * inv_n  # dL/dparts
 
     def local_loss_and_grad(params, t):
         me = jax.lax.axis_index(Z_AXIS)
+        rows = me * nz_local - 1 + jnp.arange(nz_local + 2)
+        rows = jnp.mod(rows, g.nz) if g.periodic else jnp.clip(rows, 0, g.nz - 1)
 
-        def body(gacc, j):
-            k = me * per_shard + j
-            lk, gk = vg(params, t, k)
-            return jax.tree_util.tree_map(jnp.add, gacc, gk), lk
+        def local_parts(p):
+            fs = fieldgen.generate_fields(g, mcfg, p, t, g.dt, precision, rows)
+            rs, ru = residuals_zext(
+                g,
+                jnp.stack([fs.sigma_tm1, fs.sigma_t, fs.sigma_tp1]),
+                jnp.stack([fs.u_tm1, fs.u_t, fs.u_tp1]),
+            )
+            return plane_partials(rs, ru)  # [2, nz_local]
 
-        g0 = jax.tree_util.tree_map(jnp.zeros_like, params)
-        gsum, parts = jax.lax.scan(body, g0, jnp.arange(per_shard))
-        all_parts = jax.lax.all_gather(parts, Z_AXIS, tiled=True)  # [n_slabs]
-        import functools as _ft
-
-        raw_l = _ft.reduce(
-            lambda a, i: a + all_parts[i], range(n_slabs), jnp.float32(0.0)
+        parts, vjp = jax.vjp(local_parts, params)
+        (grads,) = vjp(jnp.broadcast_to(ct, parts.shape))
+        l_sigma, l_u = sum_partials(
+            g, w, jax.lax.all_gather(parts, Z_AXIS, axis=1, tiled=True)
         )
-        grads = jax.lax.psum(gsum, Z_AXIS)
-        scale = lambda x: x * inv_n
-        return raw_l * inv_n, jax.tree_util.tree_map(scale, grads)
+        return l_sigma + l_u, jax.lax.psum(grads, Z_AXIS)
 
-    sharded_lg = jax.shard_map(
+    loss_and_grad = jax.shard_map(
         local_loss_and_grad,
         mesh=mesh,
         in_specs=(P(), P()),
         out_specs=(P(), P()),
-        check_vma=False,
+        check_vma=False,  # pallas_call outputs carry no vma metadata
     )
-    return make_step_and_init(sharded_lg)
+
+    @partial(jax.jit, donate_argnums=(0, 1))
+    def step(params, opt_state, t):
+        loss, grads = loss_and_grad(params, t)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        params = optax.apply_updates(params, updates)
+        return params, opt_state, loss
+
+    def init(params):
+        params = jax.device_put(params, rep)
+        return params, jax.device_put(opt.init(params), rep)
+
+    return step, init
 
 
 def make_generic_sharded_train_step(

@@ -2,7 +2,7 @@
 
 `ops/projection.py::project_fft` needs a full 3-D spectrum, but fields on
 the mesh are z-sharded and no chip ever holds the global grid. The classic
-TPU-native answer is the pencil (transpose) decomposition, built here from
+answer is the pencil (transpose) decomposition, built here from
 exactly two `jax.lax.all_to_all` collectives per solve:
 
     [nz/n, ny, nx]   rfft x, fft y      (shard-local: those axes are whole)

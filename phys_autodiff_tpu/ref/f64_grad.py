@@ -4,17 +4,15 @@
 this module adjudicates GRADIENTS: independent float64 replicas of the
 staged pipelines (field model -> residuals -> weighted MSE), differentiated
 with jax.grad under x64. It exists because comparing two float32 gradient
-implementations against each other (a backward mega-kernel vs jax.grad of
-the staged path) cannot tell WHICH one an observed gap belongs to — in
+implementations against each other (the kernel pair's backward vs jax.grad
+of the staged path) cannot tell WHICH one an observed gap belongs to — in
 clamp mode the loss is small with near-cancelling gradient contributions,
 and BOTH f32 arms sit ~1e-3 from the true gradient while agreeing with
-each other only to ~2e-4 (measured, 32x16x8 clamp H=32). The f64 arm is
-the referee: a kernel whose distance to the truth is no worse than
+each other only to ~2e-4 (measured on the CPU, 32x16x8 clamp H=32). The f64
+arm is the referee: an arm whose distance to the truth is no worse than
 jax.grad's own is correct.
 
-Covered field models (round-4 VERDICT #3 extended the referee beyond the
-coordinate MLP — NGP/Fourier mega-kernel gradients were previously
-adjudicated f32-vs-f32 only, exactly the ambiguity this module breaks):
+Covered field models:
 
   * `f64_loss_and_grad` — the coordinate MLP (models/fields.generate_fields
     semantics), both coordinate norms (the ZeroToOne arm carries the
@@ -36,7 +34,7 @@ Scalar constants everywhere are the float32-ROUNDED values promoted to
 f64 (step reciprocals, resample weights, coordinates, frequencies), so the
 truth differentiates exactly the function the f32 arms evaluate.
 
-Not TPU code — runs on CPU, test/validation only.
+Validation only: the tests run it on the CPU, chip_smoke.py on the card.
 """
 
 from __future__ import annotations
@@ -124,15 +122,14 @@ def _f64_stencil_loss(g: GridSpec, w: PhysWeights):
     return loss_of
 
 
-def f64_loss_fn(
-    g: GridSpec, w: PhysWeights, norm: CoordNorm = CoordNorm.MinusOneToOne
+def f64_fields_fn(
+    g: GridSpec, norm: CoordNorm = CoordNorm.MinusOneToOne
 ):
-    """loss(params64, t) -> scalar f64 for the coordinate MLP;
-    differentiate with jax.grad inside `jax.enable_x64`. Semantics mirror
-    models/fields.generate_fields + ops.residuals + ops.total_loss
-    (central or upwind per g.scheme). `norm` must match the pipeline under
-    adjudication (ZeroToOne adds the reference's t+0.5 to the time
-    channel)."""
+    """fields(params64, t) -> [(sigma, u) x 3 time slices] in f64: the
+    coordinate MLP's snapshots at t-dt, t, t+dt (call inside
+    `jax.enable_x64`). Semantics mirror models/fields.generate_fields;
+    ZeroToOne's time channel carries the reference's +0.5 quirk
+    (models/coords.grid_coords; src/mlp_grid.cpp:38)."""
     xs = np.broadcast_to(
         _axis_coord_f32_values(g.nx, norm)[None, None, :], g.shape
     )
@@ -143,25 +140,35 @@ def f64_loss_fn(
         _axis_coord_f32_values(g.nz, norm)[:, None, None], g.shape
     )
     spatial = jnp.asarray(np.stack([xs, ys, zs], axis=-1))  # [nz, ny, nx, 3]
-    loss_of = _f64_stencil_loss(g, w)
 
-    def loss(params64, t):
+    def fields(params64, t):
         t = jnp.asarray(t, jnp.float64)
         dt = jnp.float64(np.float32(g.dt))
-        fields = []
+        out = []
         for tt in (t - dt, t, t + dt):
-            # ZeroToOne's time channel carries the reference's +0.5 quirk
-            # (models/coords.grid_coords; src/mlp_grid.cpp:38)
             tch = tt + 0.5 if norm == CoordNorm.ZeroToOne else tt
             co = jnp.concatenate(
                 [spatial, jnp.broadcast_to(tch, g.shape)[..., None]], -1
             )
             z1 = co @ params64["W1"] + params64["b1"]
             y = jnp.maximum(z1, 0.0) @ params64["W2"] + params64["b2"]
-            fields.append((y[..., 0], jnp.moveaxis(y[..., 1:4], -1, 0)))
-        return loss_of(fields)
+            out.append((y[..., 0], jnp.moveaxis(y[..., 1:4], -1, 0)))
+        return out
 
-    return loss
+    return fields
+
+
+def f64_loss_fn(
+    g: GridSpec, w: PhysWeights, norm: CoordNorm = CoordNorm.MinusOneToOne
+):
+    """loss(params64, t) -> scalar f64 for the coordinate MLP;
+    differentiate with jax.grad inside `jax.enable_x64`. Semantics mirror
+    models/fields.generate_fields + ops.residuals + ops.total_loss
+    (central or upwind per g.scheme). `norm` must match the pipeline under
+    adjudication."""
+    fields = f64_fields_fn(g, norm)
+    loss_of = _f64_stencil_loss(g, w)
+    return lambda params64, t: loss_of(fields(params64, t))
 
 
 def f64_loss_and_grad(

@@ -3,7 +3,7 @@
 This is the framework's ground-truth arm, playing the role of the reference's
 CPU implementation (src/phys_cpu.cpp): all intermediate arithmetic is done in
 float64 on float32 inputs, and results are cast back to float32. It is pure
-NumPy (vectorized, no scalar loops) and never runs on TPU.
+NumPy (vectorized, no scalar loops) and never runs on an accelerator.
 
 Semantics replicated exactly (with citations):
 

@@ -2,11 +2,8 @@
 
 New capability relative to the reference, which keeps weights in in-memory
 vectors regenerated from seeds each run (include/mlp_grid.h:19-24, survey
-§5 "Checkpoint / resume: absent"). Two formats:
-
-  * npz: dependency-free, a flat .npz of leaves + a JSON tree manifest —
-    robust and human-inspectable (the default).
-  * orbax: standard JAX ecosystem checkpointing, used when available.
+§5 "Checkpoint / resume: absent"). One format, dependency-free: a flat
+.npz of leaves + a JSON tree manifest — robust and human-inspectable.
 """
 
 from __future__ import annotations
@@ -39,8 +36,8 @@ def save_npz(
 
     `meta`: optional JSON-safe dict stored in the manifest and validated by
     restore_npz(expect_meta=...) — e.g. ngp.checkpoint_meta(cfg), so an NGP
-    checkpoint records its encoding schedule (level resolutions changed
-    floor->round in round 2; tables with the same SHAPES decode to different
+    checkpoint records its encoding schedule (level resolutions once changed
+    from floor to round; tables with the same SHAPES decode to different
     fields under a different schedule).
 
     `extra`: optional JSON-safe dict stored in the manifest but NOT part of
@@ -100,9 +97,9 @@ def restore_npz(
     .tree.json sidecar) is validated against `like` (leaf count and treedef
     string) so a structurally different `like` cannot silently mis-assign
     leaves by index. A checkpoint with no manifest at all is refused unless
-    `allow_unvalidated=True`, which falls back to the pre-round-2 leaf-count
-    check with a warning (round-2 ADVICE #3: .npz files copied without their
-    sidecar were previously loadable).
+    `allow_unvalidated=True`, which falls back to the older leaf-count
+    check with a warning (.npz files copied without their sidecar were once
+    loadable).
 
     `expect_meta`: if given and the checkpoint carries a manifest "meta"
     entry, the two must be equal (e.g. an NGP encoding-schedule fingerprint
@@ -169,18 +166,3 @@ def restore_npz(
                 )
         leaves = [jnp.asarray(data[f"leaf_{i}"]) for i in range(len(leaves_like))]
     return jax.tree_util.tree_unflatten(treedef, leaves)
-
-
-def save_orbax(path: str, tree: Any) -> None:
-    import orbax.checkpoint as ocp
-
-    ckptr = ocp.StandardCheckpointer()
-    ckptr.save(os.path.abspath(path), tree)
-    ckptr.wait_until_finished()
-
-
-def restore_orbax(path: str, like: Any) -> Any:
-    import orbax.checkpoint as ocp
-
-    ckptr = ocp.StandardCheckpointer()
-    return ckptr.restore(os.path.abspath(path), like)

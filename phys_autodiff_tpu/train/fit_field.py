@@ -139,108 +139,6 @@ def make_fit_loss(
     return loss_fn
 
 
-def _resolve_fit_engine(engine: str, g, model_cfg, phys_weight) -> str:
-    """"mega" = the one-kernel Pallas gradient engines (pallas/fit.py for
-    the data term; pallas/mega_bwd.py for the physics term of the PINN
-    composite); "xla" = jax.value_and_grad of the staged loss. "auto"
-    picks mega whenever the config supports it on a TPU backend (the
-    interpret-mode kernels are parity tools, not a fast CPU path)."""
-    if engine == "xla":
-        return "xla"
-    from phys_autodiff_tpu.pallas.fit import fit_supported
-
-    if isinstance(model_cfg, MLPGridConfig):
-        eligible = fit_supported(g)
-    else:
-        from phys_autodiff_tpu.models.ngp import NGPFieldConfig
-
-        eligible = (
-            isinstance(model_cfg, NGPFieldConfig)
-            and model_cfg.out == 4
-            and fit_supported(g)
-        )
-    if eligible and phys_weight:
-        from phys_autodiff_tpu.pallas.mega_bwd import mega_supported
-
-        eligible = mega_supported(g)
-    if engine == "mega":
-        if not eligible:
-            raise ValueError(
-                "engine='mega' needs the MLP or NGP (out=4) family and "
-                "ny*nx % 128 == 0 (plus mega_supported(g) when "
-                "phys_weight > 0)"
-            )
-        return "mega"
-    assert engine == "auto", f"unknown fit engine {engine!r}"
-    return (
-        "mega"
-        if eligible and jax.default_backend() != "cpu"
-        else "xla"
-    )
-
-
-def _make_mega_loss_and_grad(
-    g: GridSpec,
-    model_cfg,
-    targets: Sequence[FitTarget],
-    w_data: PhysWeights,
-    phys_weight: float,
-    w_phys: PhysWeights,
-    precision: str,
-    interpret=None,
-):
-    """(params) -> (loss, grads) through the one-kernel engines — same
-    composite semantics as make_fit_loss (snapshot mean, + phys_weight
-    times the physics-residual loss)."""
-    from phys_autodiff_tpu.pallas import fit as pfit
-
-    is_mlp = isinstance(model_cfg, MLPGridConfig)
-    if is_mlp:
-        from phys_autodiff_tpu.pallas.mega_bwd import mega_loss_and_grad
-
-        data_lag = pfit.fit_loss_and_grad
-        phys_lag = mega_loss_and_grad
-    else:
-        from phys_autodiff_tpu.pallas.mega_ngp import ngp_loss_and_grad
-
-        data_lag = pfit.ngp_fit_loss_and_grad
-        phys_lag = ngp_loss_and_grad
-
-    targets = list(targets)
-    packed = [pfit.pack_target(g, tgt.sigma, tgt.u) for tgt in targets]
-    inv = 1.0 / len(targets)
-    pw = float(phys_weight)
-
-    def loss_and_grad(params):
-        total = jnp.float32(0.0)
-        gacc = None
-        for tgt, pk in zip(targets, packed):
-            ld, (gd, _) = data_lag(
-                g, model_cfg, params, pk, tgt.t, w_data,
-                precision=precision, interpret=interpret,
-            )
-            total = total + ld
-            gacc = (
-                gd
-                if gacc is None
-                else jax.tree_util.tree_map(jnp.add, gacc, gd)
-            )
-            if pw:
-                lp, (gp, _) = phys_lag(
-                    g, w_phys, model_cfg, params, tgt.t, precision, interpret
-                )
-                total = total + jnp.float32(pw) * lp
-                gacc = jax.tree_util.tree_map(
-                    lambda a, b: a + jnp.float32(pw) * b, gacc, gp
-                )
-        scale = jnp.float32(inv)
-        return total * scale, jax.tree_util.tree_map(
-            lambda x: x * scale, gacc
-        )
-
-    return loss_and_grad
-
-
 def fit_field(
     g: GridSpec,
     model_cfg,
@@ -250,32 +148,16 @@ def fit_field(
     w_data: PhysWeights = PhysWeights(),
     phys_weight: float = 0.0,
     w_phys: PhysWeights = PhysWeights(),
-    engine: str = "auto",
-    interpret=None,
 ):
     """Fit model_cfg's parameters to the target snapshots.
 
     Runs cfg.steps optimizer steps (cfg's optimizer/schedule/clip chain,
     train/loop.make_optimizer) as ONE on-device lax.scan. Returns
-    (params, losses[cfg.steps]).
-
-    engine: "auto" | "mega" | "xla" (see _resolve_fit_engine) — "mega"
-    computes loss + ALL gradients in one Pallas kernel per term
-    (cfg.precision selects the kernel tier)."""
+    (params, losses[cfg.steps])."""
     params = init_any(model_cfg, seed=cfg.seed) if params0 is None else params0
-    if _resolve_fit_engine(engine, g, model_cfg, phys_weight) == "mega":
-        loss_and_grad = _make_mega_loss_and_grad(
-            g, model_cfg, targets, w_data, phys_weight, w_phys,
-            cfg.precision, interpret,
-        )
-    else:
-        loss_fn = make_fit_loss(
-            g, model_cfg, targets, w_data, phys_weight, w_phys
-        )
-
-        def loss_and_grad(params):
-            return jax.value_and_grad(loss_fn)(params)
-
+    loss_and_grad = jax.value_and_grad(
+        make_fit_loss(g, model_cfg, targets, w_data, phys_weight, w_phys)
+    )
     opt = make_optimizer(cfg)
 
     @jax.jit
@@ -304,30 +186,17 @@ def make_sharded_fit_step(
     w_data: PhysWeights = PhysWeights(),
     phys_weight: float = 0.0,
     w_phys: PhysWeights = PhysWeights(),
-    engine: str = "auto",
-    interpret=None,
 ):
     """Multi-chip supervised fitting: params replicated, targets and the
     model's grid output z-sharded — the fit-side counterpart of
     parallel.sharded.make_generic_sharded_train_step, so data
-    assimilation scales over the mesh exactly like physics training.
-
-    Two arms (engine, resolved by _resolve_fit_engine):
-    - "xla": GSPMD — the partitioner inserts the gradient all-reduce.
-    - "mega": the one-kernel fit step PER SHARD under shard_map
-      (pallas.fit.fit_loss_and_grad_sharded; the PINN composite adds the
-      per-shard physics backward mega-kernel) — the mesh needs a z axis
-      with g.nz % shards == 0.
+    assimilation scales over the mesh exactly like physics training
+    (GSPMD: the partitioner inserts the gradient all-reduce).
 
     Returns (step, init): step(params, opt_state) -> (params',
     opt_state', loss); init(params=None) places replicated params +
     optimizer state on the mesh. The targets are device_put z-sharded
     once, here."""
-    if _resolve_fit_engine(engine, g, model_cfg, phys_weight) == "mega":
-        return _make_sharded_fit_step_mega(
-            g, model_cfg, targets, mesh, cfg, w_data, phys_weight,
-            w_phys, interpret,
-        )
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from phys_autodiff_tpu.parallel.mesh import (
@@ -375,98 +244,6 @@ def make_sharded_fit_step(
     @jax.jit
     def step(params, opt_state):
         loss, grads = jax.value_and_grad(loss_of)(params)
-        updates, opt_state = opt.update(grads, opt_state, params)
-        params = optax.apply_updates(params, updates)
-        return params, opt_state, loss
-
-    def init(params=None):
-        if params is None:
-            params = init_any(model_cfg, seed=cfg.seed)
-        params = jax.device_put(params, rep)
-        return params, jax.device_put(opt.init(params), rep)
-
-    return step, init
-
-
-def _make_sharded_fit_step_mega(
-    g: GridSpec,
-    model_cfg,
-    targets: Sequence[FitTarget],
-    mesh,
-    cfg: TrainConfig,
-    w_data: PhysWeights,
-    phys_weight: float,
-    w_phys: PhysWeights,
-    interpret=None,
-):
-    """The engine="mega" arm of make_sharded_fit_step (see its docstring):
-    per-shard one-kernel data gradients, plus the per-shard physics
-    backward mega-kernel when phys_weight > 0."""
-    from phys_autodiff_tpu.pallas import fit as pfit
-    from phys_autodiff_tpu.parallel.mesh import replicated
-
-    rep = replicated(mesh)
-    is_mlp = isinstance(model_cfg, MLPGridConfig)
-    if is_mlp:
-        lag = pfit.fit_loss_and_grad_sharded(
-            g, model_cfg, mesh, w_data, cfg.precision, interpret
-        )
-    else:
-        lag = pfit.ngp_fit_loss_and_grad_sharded(
-            g, model_cfg, mesh, w_data, cfg.precision, interpret
-        )
-    targets = list(targets)
-    packed = [
-        (
-            jax.device_put(
-                pfit.pack_target(g, tgt.sigma, tgt.u), lag.target_sharding
-            ),
-            tgt.t,
-        )
-        for tgt in targets
-    ]
-    inv = 1.0 / len(targets)
-    pw = float(phys_weight)
-    if pw:
-        if is_mlp:
-            from phys_autodiff_tpu.pallas.mega_bwd import (
-                mega_loss_and_grad_sharded,
-            )
-
-            plag = mega_loss_and_grad_sharded(
-                g, w_phys, model_cfg, mesh, cfg.precision, interpret
-            )
-        else:
-            from phys_autodiff_tpu.pallas.mega_ngp import (
-                ngp_loss_and_grad_sharded,
-            )
-
-            plag = ngp_loss_and_grad_sharded(
-                g, w_phys, model_cfg, mesh, cfg.precision, interpret
-            )
-    opt = make_optimizer(cfg)
-
-    @jax.jit
-    def step(params, opt_state):
-        total = jnp.float32(0.0)
-        gacc = None
-        for pk, tt in packed:
-            ld, (gd, _) = lag(params, pk, jnp.float32(tt))
-            total = total + ld
-            gacc = (
-                gd
-                if gacc is None
-                else jax.tree_util.tree_map(jnp.add, gacc, gd)
-            )
-            if pw:
-                lp, (gp, _) = plag(params, jnp.float32(tt))
-                total = total + jnp.float32(pw) * lp
-                gacc = jax.tree_util.tree_map(
-                    lambda a, b: a + jnp.float32(pw) * b, gacc, gp
-                )
-        scale = jnp.float32(inv)
-        loss = total * scale
-        grads = jax.tree_util.tree_map(lambda x: x * scale, gacc)
         updates, opt_state = opt.update(grads, opt_state, params)
         params = optax.apply_updates(params, updates)
         return params, opt_state, loss

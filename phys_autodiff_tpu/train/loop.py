@@ -39,11 +39,11 @@ class TrainConfig:
     t_sampling: str = "fixed"  # "fixed" | "uniform" (t ~ U(0,1) per step)
     seed: int = 0
     log_every: int = 10
-    use_fused: bool = False  # fused step: forward = packed Pallas
-    # MLP->residual->loss pipeline, backward = slab-blocked recompute
-    # gradient (train/slab_grad.py) — fields, residuals and the [3N, H]
-    # activation residual never materialize at grid size
-    precision: str = "f32"  # "f32" | "bf16" — fused-step compute precision
+    use_fused: bool = False  # fused step: the fields come from the kernel
+    # pair of pallas/fieldgen.py, whose backward recomputes the [3N, H]
+    # hidden activation instead of keeping it in device memory
+    precision: str = "f32"  # "f32" | "bf16" — field-generation precision
+    # (models/mlp.forward's tiers; the fused step's kernel pair mirrors them)
     remat: bool = False  # rematerialize field generation in the backward
     # (drops the [N, H] hidden-activation residual from HBM; trades ~1
     # forward recompute for memory headroom on large grids)
@@ -51,8 +51,8 @@ class TrainConfig:
     # "bfloat16" | "tensorfloat32" | "float32": jax.default_matmul_precision
     # for the whole step. NOTE: the coordinate MLP pins its own matmuls to
     # HIGHEST for the parity doctrine, so this only affects unpinned matmuls
-    # (e.g. the NGP head or custom generators); the fast-gradient path for
-    # the core model is the round-2 fused backward (docs/DESIGN.md).
+    # (e.g. custom generators); the fast-gradient path for the core model
+    # is use_fused.
 
 
 class TrainState(NamedTuple):
@@ -128,15 +128,18 @@ def loss_fn(
 ):
     """Scalar physics loss of the MLP-generated fields at time t.
 
-    use_fused=True routes the WHOLE loss through the fused path: forward is
-    the packed Pallas MLP->residual->loss pipeline, backward the
-    slab-blocked recompute gradient (train/slab_grad.py) — the round-2 fused
-    training step (remat is implicit: nothing grid-sized is retained)."""
+    use_fused=True generates the fields with the kernel pair
+    (pallas/fieldgen.py); `precision` selects the tier of either generator.
+    XLA keeps the residual stencil, the loss and their adjoint either
+    way."""
     if use_fused:
-        from phys_autodiff_tpu.train.slab_grad import make_fused_loss
+        from phys_autodiff_tpu.pallas import fieldgen
 
-        return make_fused_loss(g, w, mcfg, precision)(params, jnp.float32(t))
-    gen = lambda p, tt: fields_mod.generate_fields(g, mcfg, p, tt, g.dt)
+        fs = fieldgen.generate_fields(g, mcfg, params, t, g.dt, precision)
+        return ops.total_loss(g, w, fs)
+    gen = lambda p, tt: fields_mod.generate_fields(
+        g, mcfg, p, tt, g.dt, precision
+    )
     if remat:
         gen = jax.checkpoint(gen)
     fs = gen(params, t)
@@ -180,18 +183,6 @@ def make_train_epoch(
 def _make_step_fn(g, w, mcfg, cfg):
     """Unjitted single step (shared by make_train_step and make_train_epoch)."""
     opt = make_optimizer(cfg)
-    # Fused step on supported configs: ONE kernel computes the loss AND all
-    # parameter gradients (pallas/mega_bwd.py); otherwise value_and_grad of
-    # the (possibly fused-forward) loss.
-    from phys_autodiff_tpu.pallas.mega_bwd import mega_fits, mega_supported
-
-    # mega_fits: the mega backward's dCD accumulator is VMEM-resident across
-    # the z sweep, so deep-z grids overflow VMEM — those route to the
-    # slab-recompute gradient via loss_fn's fused path (make_fused_loss
-    # applies the same gate and picks backward="slab").
-    use_mega_bwd = (
-        cfg.use_fused and mega_supported(g) and mega_fits(g, mcfg.dims.H)
-    )
 
     def step(state: TrainState):
         key, sub = jax.random.split(state.key)
@@ -199,18 +190,11 @@ def _make_step_fn(g, w, mcfg, cfg):
             t = jax.random.uniform(sub, ())
         else:
             t = jnp.float32(cfg.t)
-        if use_mega_bwd:
-            from phys_autodiff_tpu.pallas.mega_bwd import mega_loss_and_grad
-
-            loss, (grads, _) = mega_loss_and_grad(
-                g, w, mcfg, state.params, t, cfg.precision
+        loss, grads = jax.value_and_grad(
+            lambda p: loss_fn(
+                g, w, mcfg, p, t, cfg.use_fused, cfg.remat, cfg.precision
             )
-        else:
-            loss, grads = jax.value_and_grad(
-                lambda p: loss_fn(
-                    g, w, mcfg, p, t, cfg.use_fused, cfg.remat, cfg.precision
-                )
-            )(state.params)
+        )(state.params)
         updates, opt_state = opt.update(grads, state.opt_state, state.params)
         params = optax.apply_updates(state.params, updates)
         return TrainState(params, opt_state, state.step + 1, key), loss
@@ -299,62 +283,20 @@ def make_ngp_train_step(
     cfg: TrainConfig,
     params0: dict,
     precision: str = "f32",
-    backward: str = "auto",
 ):
-    """Training step for the NGP hash-encoded field model.
-
-    backward="mega" runs the NGP backward mega-kernel (ONE Pallas pass for
-    loss + head gradients + the encoding cotangent, pallas/mega_ngp.py —
-    the H-space activations never touch HBM) plus the scatter-free encoder
-    VJP; "xla" takes jax.value_and_grad through the XLA pipeline with the
-    fused physics loss (the round-3-early path); "auto" picks mega on real
-    accelerators whenever the plane is supported."""
+    """Training step for the NGP hash-encoded field model: value_and_grad
+    through the XLA pipeline (encoder, decode head, stencil and loss).
+    precision="bf16" runs the decode-head matmuls with bf16 operands.
+    Returns (jitted_step, initial TrainState)."""
     from phys_autodiff_tpu.models import ngp as ngp_mod
-    from phys_autodiff_tpu.pallas.mega_ngp import (
-        ngp_loss_and_grad,
-        ngp_supported,
+
+    return make_generic_train_step(
+        g,
+        w,
+        lambda p, t: ngp_mod.generate_fields(g, ncfg, p, t, g.dt, precision),
+        cfg,
+        params0,
     )
-
-    if backward == "auto":
-        backward = (
-            "mega"
-            if ngp_supported(g) and jax.default_backend() != "cpu"
-            else "xla"
-        )
-    if backward == "xla":
-        return make_generic_train_step(
-            g,
-            w,
-            lambda p, t: ngp_mod.generate_fields(g, ncfg, p, t, g.dt,
-                                                 precision),
-            cfg,
-            params0,
-            generate_packed_fn=lambda p, t: ngp_mod.generate_fields_packed(
-                g, ncfg, p, t, g.dt, precision
-            ),
-        )
-    opt = make_optimizer(cfg)
-
-    def step(state: TrainState):
-        key, sub = jax.random.split(state.key)
-        if cfg.t_sampling == "uniform":
-            t = jax.random.uniform(sub, ())
-        else:
-            t = jnp.float32(cfg.t)
-        loss, (grads, _) = ngp_loss_and_grad(
-            g, w, ncfg, state.params, t, precision
-        )
-        updates, opt_state = opt.update(grads, state.opt_state, state.params)
-        params = optax.apply_updates(state.params, updates)
-        return TrainState(params, opt_state, state.step + 1, key), loss
-
-    state0 = TrainState(
-        params=params0,
-        opt_state=opt.init(params0),
-        step=jnp.int32(0),
-        key=jax.random.PRNGKey(cfg.seed),
-    )
-    return jax.jit(step), state0
 
 
 def make_generic_train_step(
@@ -363,52 +305,15 @@ def make_generic_train_step(
     generate_fn,
     cfg: TrainConfig,
     params0,
-    physics_loss: str = "auto",
-    generate_packed_fn=None,
 ):
     """Model-agnostic training step for any differentiable field generator
-    `generate_fn(params, t) -> FieldSnapshots` (plain MLP, fused-MLP, NGP
-    hash field, ...). Returns (jitted_step, initial TrainState).
-
-    physics_loss: "staged" runs the XLA residual chain; "fused" runs the
-    in-kernel-reduction Pallas loss (differentiable — its custom_vjp is the
-    exact field adjoint; loss_forward_fused_packed falls back to staged ops
-    itself on planes no fused kernel serves). "auto" picks fused on real
-    accelerators and staged on the CPU backend (where Pallas would run in
-    slow interpret mode).
-
-    generate_packed_fn: optional `(params, t) -> [12, nz, ny, nx]` producing
-    the packed field block DIRECTLY (residuals.PACKED_ORDER). When given,
-    the fused branch uses it instead of pack_fields(generate_fn(...)),
-    skipping the channels-last -> plane relayout (and its transposed replay
-    in the backward) for generators that can emit channel-first (e.g.
-    ngp.generate_fields_packed)."""
+    `generate_fn(params, t) -> FieldSnapshots` (plain MLP, NGP hash field,
+    ...): jax.value_and_grad of the staged residual loss. Returns
+    (jitted_step, initial TrainState)."""
     opt = make_optimizer(cfg)
-    if physics_loss == "auto":
-        physics_loss = "fused" if jax.default_backend() != "cpu" else "staged"
 
-    if physics_loss == "fused":
-        from phys_autodiff_tpu.pallas.residuals import (
-            loss_forward_fused_packed,
-            pack_fields,
-        )
-
-        if generate_packed_fn is not None:
-
-            def total_loss_of(p, t):
-                ls, lu = loss_forward_fused_packed(g, w, generate_packed_fn(p, t))
-                return ls + lu
-        else:
-
-            def total_loss_of(p, t):
-                ls, lu = loss_forward_fused_packed(
-                    g, w, pack_fields(generate_fn(p, t))
-                )
-                return ls + lu
-    else:
-
-        def total_loss_of(p, t):
-            return ops.total_loss(g, w, generate_fn(p, t))
+    def total_loss_of(p, t):
+        return ops.total_loss(g, w, generate_fn(p, t))
 
     def step(state: TrainState):
         key, sub = jax.random.split(state.key)

@@ -91,17 +91,3 @@ class MLPGridConfig:
 
     dims: MLPDims = dataclasses.field(default_factory=MLPDims)
     norm: CoordNorm = CoordNorm.MinusOneToOne
-
-
-def dot_precision(precision: str):
-    """MXU precision tiers shared by the fused kernels and the slab
-    gradient: "f32" = HIGHEST (strict parity, ~1e-6 dot error vs f64),
-    "f32_high" = HIGH (bf16x3-class passes, ~1.3e-5 measured, half the
-    HIGHEST cost), "bf16" = DEFAULT with bf16 operands (1e-3 class)."""
-    import jax
-
-    return {
-        "f32": jax.lax.Precision.HIGHEST,
-        "f32_high": jax.lax.Precision.HIGH,
-        "bf16": jax.lax.Precision.DEFAULT,
-    }[precision]

@@ -1,10 +1,10 @@
-"""Layout bijection between TPU-native arrays and the reference flat layout.
+"""Layout bijection between this framework's arrays and the reference flat layout.
 
 Reference layout contract (include/phys.h:20-21, src/phys_cpu.cpp:17-23):
   * scalar field: flat length-N float array, idx = (z*ny + y)*nx + x
   * vector field: channel-major flat [3*N]: [ux(0..N-1), uy(...), uz(...)]
 
-TPU-native layout here:
+Layout here:
   * scalar field: [nz, ny, nx] (x fastest in memory → C-order reshape is the
     exact reference layout)
   * vector field: [3, nz, ny, nx]

@@ -11,10 +11,10 @@ Arms:
   * grid    — velocity by trilinear sampling of a frozen [3, nz, ny, nx]
               snapshot generated once by the same model
 
-Timing: ONE advection step as the body of bench.harness.time_loop (slope
-method, on-device fori_loop, loop-carried positions — each step's velocity
-query depends on the previous step's output, so nothing can be hoisted or
-narrowed; the fetched scalar is a position component).
+Timing: ONE advection step as the body of bench.harness.time_loop
+(on-device fori_loop ended by block_until_ready, loop-carried positions —
+each step's velocity query depends on the previous step's output, so
+nothing can be hoisted or narrowed).
 
 Usage: python scripts/advect_bench.py [n_particles] [method]
          n_particles default 1_000_000; method euler|rk2 (default rk2)
@@ -23,12 +23,7 @@ Usage: python scripts/advect_bench.py [n_particles] [method]
 from __future__ import annotations
 
 import json
-import os
 import sys
-
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR", "/root/repo/build/jax_cache"
-)
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +31,7 @@ import jax.numpy as jnp
 from phys_autodiff_tpu.apps import advect as adv
 from phys_autodiff_tpu.bench.harness import time_loop
 from phys_autodiff_tpu.models import fields, mlp
+from phys_autodiff_tpu.utils.cache import enable_compile_cache
 from phys_autodiff_tpu.utils.config import GridSpec, MLPDims, MLPGridConfig
 
 
@@ -90,9 +86,7 @@ def main(n_particles: int = 1_000_000, method: str = "rk2") -> None:
 
 
 if __name__ == "__main__":
-    from phys_autodiff_tpu.utils.freeze import assert_not_frozen
-
-    assert_not_frozen("scripts/advect_bench.py")
+    enable_compile_cache()
     if len(sys.argv) not in (1, 2, 3):
         print(
             "usage: python scripts/advect_bench.py [n_particles] "

@@ -74,9 +74,6 @@ def _fit_ngp(g, cfg):
 
 
 if __name__ == "__main__":
-    from phys_autodiff_tpu.utils.freeze import assert_not_frozen
-
-    assert_not_frozen("scripts/train_demo.py")
     steps = int(sys.argv[1]) if len(sys.argv) > 1 else 300
     model = sys.argv[2] if len(sys.argv) > 2 else "mlp"
     rollout_steps = int(sys.argv[3]) if len(sys.argv) > 3 else 0

@@ -4,7 +4,7 @@ Times one transport step of the flagship 128x96x96 grid through a frozen
 random CFL-0.8 velocity field, two formulations of the SAME math:
 
   split   apps/transport.transport_step — axis-separable roll+select
-          trilinear (the TPU-first design)
+          trilinear (no gathers)
   gather  models/sample.trilinear_sample at the per-cell departure points
           (the textbook/GPU formulation; for constant-per-cell offsets the
           two agree to fp rounding — tests/test_transport.py)
@@ -19,20 +19,15 @@ hoisted). Usage: python scripts/transport_bench.py [arm ...]
 from __future__ import annotations
 
 import json
-import os
 import sys
 
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR", "/root/repo/build/jax_cache"
-)
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from phys_autodiff_tpu.apps import transport as tr
 from phys_autodiff_tpu.bench.harness import time_loop
 from phys_autodiff_tpu.models import sample
+from phys_autodiff_tpu.utils.cache import enable_compile_cache
 from phys_autodiff_tpu.utils.config import GridSpec
 
 
@@ -64,11 +59,6 @@ def main() -> None:
     def split_body(i, s):
         return tr.transport_step(g, s, u, g.dt)
 
-    def fused_body(i, s):
-        from phys_autodiff_tpu.pallas.transport import transport_step_fused
-
-        return transport_step_fused(g, s, u, g.dt)
-
     def gather_body(i, s):
         return sample.trilinear_sample(s, dep, g).reshape(g.shape)
 
@@ -81,24 +71,10 @@ def main() -> None:
     def split_bf16_body(i, s):
         return tr.transport_step_bf16(g, s, u_bf16, g.dt)
 
-    from phys_autodiff_tpu.pallas.transport import (
-        transport_step_fused_pre,
-        transport_weights,
-    )
-
-    weights = tuple(
-        jnp.asarray(wt) for wt in transport_weights(g, u, g.dt)
-    )
-
-    def fused_pre_body(i, s):
-        return transport_step_fused_pre(g, s, weights)
-
     wanted = set(sys.argv[1:])
     for name, body, init in (
         ("split", split_body, sigma0),
         ("split_bf16", split_bf16_body, sigma0_bf16),
-        ("fused", fused_body, sigma0),
-        ("fused_pre", fused_pre_body, sigma0),
         ("gather", gather_body, sigma0),
     ):
         if wanted and name not in wanted:
@@ -127,7 +103,5 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    from phys_autodiff_tpu.utils.freeze import assert_not_frozen
-
-    assert_not_frozen("scripts/transport_bench.py")
+    enable_compile_cache()
     main()

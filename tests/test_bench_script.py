@@ -1,335 +1,95 @@
-"""bench.py's crash-resilience machinery (round-2 VERDICT #1).
+"""bench.py: the headline record, the device it names, and its refusal to
+measure anywhere but on a GPU (a CPU number must never pass for a device
+number)."""
 
-The r02 driver capture died with rc=1 because one late TPU-worker crash lost
-the whole ~15-minute suite. These tests pin the contract that prevents a
-repeat: a provisional headline exists after the first timed section, every
-failure path still emits exactly one parseable JSON line with
-"partial": true, and the monotonicity gate checks the per-plane kernel as
-ONE family across alignment classes (round-2 ADVICE #1).
-"""
-
-import io
 import json
+import os
+import subprocess
 import sys
+from pathlib import Path
+from types import SimpleNamespace
 
-sys.path.insert(0, "/root/repo")
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
 import bench  # noqa: E402
-from phys_autodiff_tpu.bench.harness import PhysRow  # noqa: E402
+
+H100 = "NVIDIA H100 80GB HBM3"
 
 
-def row(variant, nx, ny, nz, ms):
-    return PhysRow(variant, nx, ny, nz, 10, ms)
+def _device(kind=H100):
+    return {"platform": "gpu", "kind": kind, "count": 1,
+            "power_limit": f"{kind}, 700.00 W"}
 
 
-def test_emitter_headline_math():
-    em = bench.Emitter()
-    em.set_headline(bench.BASELINE_MS, "fused")
-    assert em.headline["vs_baseline"] == 1.0
-    assert em.headline["value"] == round(
-        bench.N_CELLS_FLAGSHIP / (bench.BASELINE_MS / 1e3) / 1e9, 4
-    )
-    em.set_headline(bench.BASELINE_MS / 2, "fused")
-    assert em.headline["vs_baseline"] == 2.0
+def test_headline_math():
+    rec = bench.headline(bench.BASELINE_MS, _device())
+    assert rec["value"] == pytest.approx(
+        bench.N_CELLS_FLAGSHIP / (bench.BASELINE_MS / 1e3) / 1e9)
+    assert rec["vs_baseline"] == pytest.approx(1.0)
+    assert bench.headline(bench.BASELINE_MS / 2, _device())["vs_baseline"] == (
+        pytest.approx(2.0))
+    assert rec["unit"] == "Gcell_iters_per_s"
+    assert rec["ms"] == bench.BASELINE_MS
 
 
-def test_emitter_emits_once_and_marks_partial(capsys, monkeypatch):
-    em = bench.Emitter()
-    em.set_headline(0.04, "fused")
-    em.failures.append("pipeline_64x64x64: worker crashed")
-    em.emit(partial=True)
-    em.emit(partial=False)  # second call must be a no-op
-    out = capsys.readouterr().out.strip().splitlines()
-    assert len(out) == 1
-    parsed = json.loads(out[0])
-    assert parsed["partial"] is True
-    assert parsed["failures"] == ["pipeline_64x64x64: worker crashed"]
-    assert parsed["arm"] == "fused"
-    assert parsed["valid"] is True
+def test_headline_names_the_device_and_is_json():
+    rec = json.loads(json.dumps(bench.headline(0.05, _device())))
+    assert rec["device"]["kind"] == H100
+    assert rec["device"]["platform"] == "gpu"
+    assert "W" in rec["device"]["power_limit"]
 
 
-def test_emitter_without_headline_prints_nothing(capsys):
-    em = bench.Emitter()
-    em.emit(partial=True)
-    assert capsys.readouterr().out == ""
+def test_headline_roofline_against_the_peak_table():
+    ms = 0.05
+    rec = bench.headline(ms, _device())
+    want = (bench.N_CELLS_FLAGSHIP * bench.BYTES_PER_CELL / 3.35e12) / (ms / 1e3)
+    assert rec["roofline"]["bound"] == "memory"
+    assert rec["roofline"]["share"] == pytest.approx(want)
 
 
-def test_json_always_lands_even_without_headline(capsys, monkeypatch):
-    """The round-3 loss mode (rc=124, parsed=null) is structurally
-    impossible now: finish() ALWAYS puts one parseable JSON line on stdout
-    — the headline if one exists, an error line (valid=false) otherwise —
-    and exits 0 either way."""
-    import pytest
-
-    em = bench.Emitter()
-    assert em.emit(partial=True) is False
-    assert em.emit(partial=True) is False  # repeat call: same answer
-    em2 = bench.Emitter()
-    em2.set_headline(0.04, "fused")
-    assert em2.emit(partial=False) is True
-    assert em2.emit(partial=True) is True  # no-op repeat, still truthful
-    capsys.readouterr()
-
-    monkeypatch.setattr(bench, "EMIT", bench.Emitter())
-    bench.EMIT.failures.append("phys_64x64x64: worker crashed")
-    with pytest.raises(SystemExit) as exc:
-        bench.finish(partial=True)
-    assert exc.value.code == 0
-    parsed = json.loads(capsys.readouterr().out.strip())
-    assert parsed["valid"] is False
-    assert parsed["error"] == "no_headline"
-    assert parsed["failures"] == ["phys_64x64x64: worker crashed"]
-
-    monkeypatch.setattr(bench, "EMIT", em2)
-    with pytest.raises(SystemExit) as exc:
-        bench.finish(partial=False)
-    assert exc.value.code == 0
-    capsys.readouterr()
+def test_headline_unknown_device_raises():
+    with pytest.raises(KeyError, match="no published peaks"):
+        bench.headline(0.05, _device("NVIDIA A100-SXM4-80GB"))
 
 
-def test_emit_error_shape_and_once(capsys):
-    em = bench.Emitter()
-    assert em.emit_error("tpu_unreachable", attempts=7) is True
-    assert em.emit_error("tpu_unreachable", attempts=8) is False  # once only
-    out = capsys.readouterr().out.strip().splitlines()
-    assert len(out) == 1
-    parsed = json.loads(out[0])
-    assert parsed == {
-        "metric": "best_residual_throughput_128x96x96",
-        "value": 0.0,
-        "unit": "Gcell_iters_per_s",
-        "vs_baseline": 0.0,
-        "arm": "none",
-        "valid": False,
-        "partial": True,
-        "error": "tpu_unreachable",
-        "attempts": 7,
-    }
+@pytest.mark.parametrize("platform", ["cpu", "rocm"])
+def test_device_info_refuses_non_gpu(monkeypatch, platform):
+    import jax
+
+    fake = SimpleNamespace(platform=platform, device_kind="x")
+    monkeypatch.setattr(jax, "devices", lambda: [fake])
+    with pytest.raises(RuntimeError, match="GPU"):
+        bench.device_info()
 
 
-def test_emit_error_is_noop_after_real_emit(capsys):
-    em = bench.Emitter()
-    em.set_headline(0.04, "fused")
-    assert em.emit(partial=False) is True
-    assert em.emit_error("late") is False
-    out = capsys.readouterr().out.strip().splitlines()
-    assert len(out) == 1 and json.loads(out[0])["valid"] is True
+def test_device_info_reports_the_gpu(monkeypatch):
+    import jax
+
+    fake = SimpleNamespace(platform="gpu", device_kind=H100)
+    monkeypatch.setattr(jax, "devices", lambda: [fake, fake])
+    monkeypatch.setattr(bench, "power_limit", lambda: f"{H100}, 400.00 W")
+    info = bench.device_info()
+    assert info == {"platform": "gpu", "kind": H100, "count": 2,
+                    "power_limit": f"{H100}, 400.00 W"}
 
 
-def test_global_budget_fits_driver_window():
-    """The r03 failure: bench outlived the driver's ~1800 s kill window.
-    Pin the budget arithmetic that prevents it. The preflight budget is a
-    TRUE cap on worst-case preflight SUCCESS (the retry-cycle check counts
-    the 60 s sleep AND the 120 s probe timeout — round-4 ADVICE): 360 s,
-    plus the 900 s cold-cache flagship budget, plus 240 s margin for
-    in-process imports and section turnover."""
-    assert bench.GLOBAL_BUDGET_S <= 1500
-    assert 360 + 900 + 240 <= bench.GLOBAL_BUDGET_S
-
-
-def test_section_infra_failure_dead_worker_stops(monkeypatch):
-    probes = []
-    monkeypatch.setattr(bench, "probe_device", lambda **kw: probes.append(1) or False)
-    monkeypatch.setattr(bench, "EMIT", bench.Emitter())
-
-    def boom():
-        raise RuntimeError("UNAVAILABLE: TPU worker process crashed or restarted")
-
-    out, keep = bench.section("phys_64x64x64", 60, boom)
-    assert out is None
-    assert keep is False  # dead worker -> stop queuing sections
-    assert probes == [1]
-    assert bench.EMIT.failures and "phys_64x64x64" in bench.EMIT.failures[0]
-
-
-def test_section_infra_failure_retries_once_then_succeeds(monkeypatch):
-    """Fault injection (round-3 VERDICT #9): a worker crash mid-section is
-    survivable — the resilient classifier flags it, the re-probe passes,
-    and the section's single retry captures the rows."""
-    monkeypatch.setattr(bench, "probe_device", lambda **kw: True)
-    monkeypatch.setattr(bench, "EMIT", bench.Emitter())
+def test_power_limit_reads_nvidia_smi(monkeypatch):
     calls = []
 
-    def flaky():
-        calls.append(1)
-        if len(calls) == 1:
-            raise RuntimeError("UNAVAILABLE: socket closed")
-        return "rows"
+    def run(cmd, **kw):
+        calls.append(cmd)
+        return SimpleNamespace(stdout=f"{H100}, 700.00 W\n{H100}, 700.00 W\n")
 
-    out, keep = bench.section("phys_64x64x64", 60, flaky)
-    assert out == "rows" and keep is True
-    assert len(calls) == 2
-    # the healed failure is on record but does NOT mark the run partial:
-    # no data was lost (review finding, round 4)
-    assert bench.EMIT.failures == []
-    assert len(bench.EMIT.recovered) == 1
-    bench.EMIT.set_headline(0.04, "fused")
-    import json as _json
-
-    import io, contextlib  # noqa: E401
-
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        bench.EMIT.emit(partial=bool(bench.EMIT.failures))
-    parsed = _json.loads(buf.getvalue().strip())
-    assert parsed["partial"] is False
-    assert len(parsed["recovered"]) == 1
+    monkeypatch.setattr(bench.subprocess, "run", run)
+    assert bench.power_limit() == f"{H100}, 700.00 W"
+    assert calls[0][:2] == ["nvidia-smi", "--query-gpu=name,power.limit"]
 
 
-def test_section_infra_failure_retry_budget_is_one(monkeypatch):
-    monkeypatch.setattr(bench, "probe_device", lambda **kw: True)
-    monkeypatch.setattr(bench, "EMIT", bench.Emitter())
-    calls = []
-
-    def always_boom():
-        calls.append(1)
-        raise RuntimeError("UNAVAILABLE: worker restarted")
-
-    out, keep = bench.section("train", 60, always_boom)
-    assert out is None and keep is True  # worker alive, section just lost
-    assert len(calls) == 2  # one retry, not a loop
-
-
-def test_section_infra_then_programming_failure_records_both(monkeypatch):
-    """Round-4 ADVICE: an attempt-1 infra failure followed by an attempt-2
-    NON-infra failure must not drop the infra event — the section's data is
-    lost and the worker hiccup both belong in `failures`."""
-    monkeypatch.setattr(bench, "probe_device", lambda **kw: True)
-    monkeypatch.setattr(bench, "EMIT", bench.Emitter())
-    calls = []
-
-    def infra_then_bug():
-        calls.append(1)
-        if len(calls) == 1:
-            raise RuntimeError("UNAVAILABLE: socket closed")
-        raise ValueError("shapes (8,128) and (16,128) are incompatible")
-
-    out, keep = bench.section("train", 60, infra_then_bug)
-    assert out is None and keep is True
-    assert len(calls) == 2
-    assert len(bench.EMIT.failures) == 2
-    assert "UNAVAILABLE" in bench.EMIT.failures[0]
-    assert "shapes" in bench.EMIT.failures[1]
-    assert bench.EMIT.recovered == []
-
-
-def test_preflight_budget_is_true_cap(monkeypatch):
-    """Round-4 ADVICE: the budget must cap TOTAL preflight time including
-    the 60 s retry sleep and the 120 s probe timeout — the old check ran
-    after each failed probe and allowed a ~540 s worst case."""
-    monkeypatch.setenv("BENCH_PREFLIGHT_BUDGET_S", "100")
-    monkeypatch.setattr(bench, "probe_device", lambda **kw: False)
-    sleeps = []
-    monkeypatch.setattr(bench.time, "sleep", lambda s: sleeps.append(s))
-    ok, attempts = bench.preflight()
-    # 100 s budget cannot fit even one 60+120 retry cycle: exactly one
-    # probe, zero sleeps.
-    assert ok is False and attempts == 1 and sleeps == []
-
-
-def test_section_programming_error_never_retried(monkeypatch):
-    """A deterministic error (shape bug, NaN guard) must not burn the
-    global budget on probes/retries — the resilient predicate separates it
-    from infra failures."""
-    probes = []
-    monkeypatch.setattr(bench, "probe_device", lambda **kw: probes.append(1) or True)
-    monkeypatch.setattr(bench, "EMIT", bench.Emitter())
-    calls = []
-
-    def bug():
-        calls.append(1)
-        raise ValueError("shapes (8,128) and (16,128) are incompatible")
-
-    out, keep = bench.section("pipeline_64x64x64", 60, bug)
-    assert out is None and keep is True
-    assert len(calls) == 1 and probes == []
-
-
-def test_section_success_passes_through(monkeypatch):
-    monkeypatch.setattr(bench, "EMIT", bench.Emitter())
-    out, keep = bench.section("ok", 60, lambda a, b: a + b, 2, b=3)
-    assert out == 5 and keep is True
-    assert bench.EMIT.failures == []
-
-
-def test_watchdog_flush_emits_json_and_exits_zero(capsys, monkeypatch):
-    """Both watchdog paths (section hang, global deadline) flush a JSON
-    line and exit 0 — with OR without a measured headline."""
-    exits = []
-    monkeypatch.setattr(bench.os, "_exit", lambda code: exits.append(code))
-
-    monkeypatch.setattr(bench, "EMIT", bench.Emitter())
-    dog = bench.Watchdog()
-    dog._flush_and_exit("global_deadline")
-    parsed = json.loads(capsys.readouterr().out.strip())
-    assert parsed["valid"] is False and parsed["error"] == "global_deadline"
-    assert exits == [0]
-
-    monkeypatch.setattr(bench, "EMIT", bench.Emitter())
-    bench.EMIT.set_headline(0.04, "fused")
-    dog._flush_and_exit("hang:train")
-    parsed = json.loads(capsys.readouterr().out.strip())
-    assert parsed["partial"] is True and parsed["arm"] == "fused"
-    assert parsed["failures"] == ["hang:train"]
-    assert exits == [0, 0]
-
-
-def test_family_plane_labels_unify_within_alignment_class():
-    # ADVICE #1 follow-up: fused_multistream/fused_plane label ONE kernel
-    # and share a family base, but split by alignment class — the r03
-    # hardware data showed the unaligned variant is honestly 1.67x slower
-    # per padded cell, so a cross-class wall-time chain encodes a false
-    # assumption (the cross-class DCE risk is covered by check_floor).
-    a = bench.family(row("fused_multistream", 128, 96, 96, 1.0))
-    b = bench.family(row("fused_plane", 96, 96, 64, 2.0))
-    assert a[0] == b[0] == "plane" and a != b
-    # two unaligned plane rows DO chain
-    c = bench.family(row("fused_plane", 64, 64, 64, 1.0))
-    assert b == c
-    # the one-DMA kernels still split by alignment class
-    assert bench.family(row("fused", 128, 96, 96, 1.0)) != bench.family(
-        row("fused", 96, 96, 64, 1.0)
-    )
-
-
-def test_monotonic_gate_catches_same_class_dce():
-    rows = [
-        row("fused_plane", 64, 64, 64, 0.30),
-        # larger unaligned grid, implausibly faster than the smaller one:
-        row("fused_plane", 96, 96, 64, 0.10),
-    ]
-    assert bench.check_monotonic(rows) is False
-    rows[-1] = row("fused_plane", 96, 96, 64, 0.50)
-    assert bench.check_monotonic(rows) is True
-
-
-def test_floor_gate_catches_sub_roofline_rows():
-    # 128x96x96 at 64 B/cell over 3 TB/s -> floor ~25.2 us; 10 us is
-    # physically impossible (dead code), 40 us is fine.
-    assert bench.check_floor([row("fused", 128, 96, 96, 0.010)]) is False
-    assert bench.check_floor([row("fused", 128, 96, 96, 0.040)]) is True
-    # bf16-I/O floor is half the f32 one
-    assert bench.check_floor([row("fused_bf16io", 128, 96, 96, 0.014)]) is True
-    assert bench.check_floor([row("fused_bf16io", 128, 96, 96, 0.010)]) is False
-    # an honest alignment inversion (the r03 measurement) passes both gates
-    honest = [
-        row("fused_plane", 96, 96, 64, 0.08017),
-        row("fused_multistream", 128, 96, 96, 0.07211),
-    ]
-    assert bench.check_monotonic(honest) is True
-    assert bench.check_floor(honest) is True
-
-
-def test_refresh_headline_picks_best_f32_arm(monkeypatch):
-    monkeypatch.setattr(bench, "EMIT", bench.Emitter())
-    bench.refresh_headline(
-        [
-            row("nonfused", 128, 96, 96, 0.40),
-            row("fused", 128, 96, 96, 0.042),
-            row("fused_bf16io", 128, 96, 96, 0.030),  # excluded: not f32
-            row("fused", 64, 64, 64, 0.01),  # excluded: not flagship grid
-        ],
-        valid=True,
-    )
-    h = bench.EMIT.headline
-    assert h["arm"] == "fused"
-    assert abs(h["value"] - bench.N_CELLS_FLAGSHIP / (0.042 / 1e3) / 1e9) < 1e-3
+def test_bench_refuses_the_cpu_and_prints_no_result():
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "bench.py"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert out.stdout.strip() == ""

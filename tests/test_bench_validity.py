@@ -1,9 +1,9 @@
 """The benchmark harness's DCE-validity machinery (bench/harness.py).
 
-Round 1's headline was invalidated by dead-code elimination of the timed
-body. These tests pin the round-2 defenses, including a NEGATIVE control:
-a round-1-style timing body (consume one element of one output) measurably
-LOSES the full-shape computation in the optimized HLO, while the
+A timed body that XLA narrows by dead-code elimination measures less than
+the op. These tests pin the defenses, including a NEGATIVE control: a
+naive timing body (consume one element of one output) measurably LOSES
+the full-shape computation in the optimized HLO, while the
 generational-feedback body retains it.
 """
 
@@ -35,7 +35,7 @@ def test_feedback_mode_retains_full_shapes():
 
 
 def test_negative_control_round1_body_is_dced():
-    """The round-1 failure mode reproduced: a body that consumes one element
+    """The failure mode reproduced: a body that consumes one element
     of one output lets XLA narrow the staged stencil — the full-shape R_u
     tensor disappears from the optimized HLO. (This is exactly why probe
     mode is reserved for opaque Pallas calls.)"""

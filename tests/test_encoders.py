@@ -1,11 +1,11 @@
 """The encoder REGISTRY contract (models/encoders.py): third-party encoder
 families plug in via register_family and every downstream consumer — the
-decode head, the one-kernel training step, the sharded per-shard kernel —
-serves them unchanged. Pinned by registering a toy PARAMETERIZED family
-(learned per-channel gains over Fourier features) and checking the
-mega-kernel gradients, including the dEnc pullback through the custom
-encode_grid_zcf, against jax.grad. No reference analogue (the reference
-has exactly one model family, SURVEY.md §0)."""
+decode head, the training step, the sharded step — serves them unchanged.
+Pinned by registering a toy PARAMETERIZED family (learned per-channel
+gains over Fourier features) and checking the training step's gradients,
+including the encoder-parameter pullback through the registry, against
+jax.grad and a finite difference. No reference analogue (the reference has
+exactly one model family, SURVEY.md §0)."""
 
 import dataclasses
 
@@ -18,7 +18,6 @@ from phys_autodiff_tpu import ops
 from phys_autodiff_tpu.models import encoders, fourier, ngp
 from phys_autodiff_tpu.models.encoders import EncoderFamily, register_family
 from phys_autodiff_tpu.models.fourier import FourierEncodingConfig
-from phys_autodiff_tpu.pallas.mega_ngp import ngp_loss_and_grad
 from phys_autodiff_tpu.utils.config import GridSpec, PhysWeights
 
 
@@ -26,7 +25,7 @@ from phys_autodiff_tpu.utils.config import GridSpec, PhysWeights
 class GainedFourierConfig:
     """Toy third family: Fourier features with a LEARNED per-channel gain —
     the smallest encoder with parameters that is not a built-in, so its
-    gradient must flow through the registry's encode_grid_zcf pullback."""
+    gradient must flow through the registry's encode_grid pullback."""
 
     base: FourierEncodingConfig = FourierEncodingConfig(num_frequencies=2)
 
@@ -50,17 +49,10 @@ register_family(
         schedule_meta=lambda cfg: {
             "toy_gained_fourier_k": cfg.base.num_frequencies
         },
-        encode=lambda cfg, p, coords, allow_large: (
+        encode=lambda cfg, p, coords: (
             fourier.encode(cfg.base, coords) * p
         ),
         encode_grid=lambda cfg, p, g: fourier.encode_grid(cfg.base, g) * p,
-        encode_grid_zcf=lambda cfg, p, g: (
-            fourier.encode_grid_zcf(cfg.base, g) * p[None, :, None, None]
-        ),
-        encode_grid_zcf_rows=lambda cfg, p, g, rows: (
-            fourier.encode_grid_zcf_rows(cfg.base, g, rows)
-            * p[None, :, None, None]
-        ),
     ),
 )
 
@@ -124,28 +116,65 @@ def test_dispatch_routes_toy_family():
     grid = np.asarray(encoders.encode_grid(ENC, p, g))
     ref = np.asarray(fourier.encode_grid(ENC.base, g)) * np.asarray(p)
     np.testing.assert_array_equal(grid, ref)
-    zcf = np.asarray(encoders.encode_grid_zcf(ENC, p, g))
-    np.testing.assert_array_equal(zcf, np.moveaxis(grid, -1, 1))
-    rows = jnp.asarray([4, 0, 1, 0], jnp.int32)
-    sub = np.asarray(encoders.encode_grid_zcf_rows(ENC, p, g, rows))
-    np.testing.assert_array_equal(sub, zcf[np.asarray(rows)])
+    pts = ngp._unit_coords(g)
+    np.testing.assert_array_equal(
+        np.asarray(encoders.encode(ENC, p, pts)), grid)
     meta = encoders.schedule_meta(ENC)
     assert meta == {"toy_gained_fourier_k": 2}
     assert meta != encoders.schedule_meta(ENC.base)
 
 
+@pytest.mark.parametrize("family", ["hash", "fourier"])
+def test_dispatch_routes_builtin_families(family):
+    """The registry's four callables are the family modules' own."""
+    from phys_autodiff_tpu.models import hash_encoder
+    from phys_autodiff_tpu.models.hash_encoder import HashEncodingConfig
+
+    g, _, _, _ = _setup(nx=12, ny=7, nz=5)
+    pts = ngp._unit_coords(g)
+    if family == "hash":
+        cfg = HashEncodingConfig(num_levels=3, base_resolution=3,
+                                 max_resolution=10, log2_table_size=5,
+                                 dense_oversubscribed=True)
+        p = encoders.init_params(cfg, seed=1)
+        grid = hash_encoder.encode_grid(cfg, p, g)
+        point = hash_encoder.encode(cfg, p, pts)
+    else:
+        cfg = ENC.base
+        p = encoders.init_params(cfg, seed=1)
+        grid = fourier.encode_grid(cfg, g)
+        point = fourier.encode(cfg, pts)
+    np.testing.assert_array_equal(
+        np.asarray(encoders.encode_grid(cfg, p, g)), np.asarray(grid))
+    np.testing.assert_array_equal(
+        np.asarray(encoders.encode(cfg, p, pts)), np.asarray(point))
+    assert encoders.out_dim(cfg) == grid.shape[-1]
+
+
 @pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "clamp"])
-def test_toy_family_mega_matches_staged_grad(periodic):
-    """The one-kernel backward serves a REGISTERED family: loss + head grads
-    + the encoder-parameter gradient (via the registry encode_grid_zcf
-    pullback) vs jax.grad through the staged pipeline."""
-    g, w, ncfg, params = _setup(periodic=periodic)
+def test_toy_family_train_grad_matches_staged_grad(periodic):
+    """The jitted training gradient serves a REGISTERED family: loss, head
+    grads and the encoder-parameter gradient through the registry's
+    regular-grid encoder equal jax.grad through its pointwise encoder (two
+    independent code paths of the family, assembled into the same
+    snapshots)."""
+    g, w, ncfg, params = _setup(nx=24, periodic=periodic)
     t = jnp.float32(0.3)
-    loss_ref, g_ref = jax.value_and_grad(
-        lambda p: _staged_total(g, w, ncfg, p, t)
-    )(params)
-    loss, (grads, _) = ngp_loss_and_grad(g, w, ncfg, params, t,
-                                         interpret=True)
+
+    def pointwise_total(p):
+        coords = ngp._unit_coords(g)
+        ys = [ngp.forward(ncfg, p, coords, tt)
+              for tt in (t - jnp.float32(g.dt), t, t + jnp.float32(g.dt))]
+        fs = ops.FieldSnapshots(
+            *[y[..., 0] for y in ys],
+            *[jnp.moveaxis(y[..., 1:4], -1, 0) for y in ys],
+        )
+        ls, lu = ops.loss_forward(g, w, fs)
+        return ls + lu
+
+    loss_ref, g_ref = jax.value_and_grad(pointwise_total)(params)
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p: _staged_total(g, w, ncfg, p, t)))(params)
     assert abs(float(loss) - float(loss_ref)) <= 1e-5 * abs(float(loss_ref))
     assert float(jnp.sum(jnp.abs(grads["tables"]))) > 0.0
     tol = 1e-4 if periodic else 5e-3
@@ -153,91 +182,32 @@ def test_toy_family_mega_matches_staged_grad(periodic):
         assert _leaf_close(g_ref[k], grads[k], tol), k
 
 
-def test_fast_encode_dispatch():
-    """The fast-encode registry surface: families WITHOUT a fast variant
-    fall back to the exact encode bit-for-bit; families WITH one route
-    fast=True there (pinned with a marker impl); the built-in hash family
-    registers fast variants that keep shapes/values within the bf16-tier
-    doctrine (on this CPU backend DEFAULT == HIGHEST, so exact equality —
-    the precision split is a TPU-only effect checked by the hardware
-    parity sweep, scripts/tpu_parity.py)."""
-    g, _, _, _ = _setup(nx=12, ny=7, nz=5)
-
-    # 1) no-fast family: fallback is the exact callable
-    p = encoders.init_params(ENC, seed=3)
-    exact = np.asarray(encoders.encode_grid_zcf(ENC, p, g))
-    fast = np.asarray(encoders.encode_grid_zcf(ENC, p, g, fast=True))
-    np.testing.assert_array_equal(exact, fast)
-    rows = jnp.asarray([2, 0, 4], jnp.int32)
-    np.testing.assert_array_equal(
-        np.asarray(encoders.encode_grid_zcf_rows(ENC, p, g, rows)),
-        np.asarray(encoders.encode_grid_zcf_rows(ENC, p, g, rows, fast=True)),
-    )
-
-    # 2) fast routing is actually taken when registered
-    @dataclasses.dataclass(frozen=True)
-    class MarkedConfig:
-        base: FourierEncodingConfig = FourierEncodingConfig(num_frequencies=1)
-
-        @property
-        def out_dim(self) -> int:
-            return self.base.out_dim
-
-    base_fam = encoders.family_of(ENC)
-    register_family(
-        MarkedConfig,
-        dataclasses.replace(
-            base_fam,
-            name="marked",
-            encode_grid_zcf_fast=lambda cfg, p, g: (
-                2.0 * base_fam.encode_grid_zcf(cfg, p, g)
-            ),
-            encode_grid_zcf_rows_fast=lambda cfg, p, g, rows: (
-                2.0 * base_fam.encode_grid_zcf_rows(cfg, p, g, rows)
-            ),
-        ),
-    )
-    mc = MarkedConfig()
-    pm = encoders.init_params(mc, seed=0)
-    e = np.asarray(encoders.encode_grid_zcf(mc, pm, g))
-    f = np.asarray(encoders.encode_grid_zcf(mc, pm, g, fast=True))
-    np.testing.assert_allclose(f, 2.0 * e, rtol=1e-6)
-    er = np.asarray(encoders.encode_grid_zcf_rows(mc, pm, g, rows))
-    fr = np.asarray(encoders.encode_grid_zcf_rows(mc, pm, g, rows, fast=True))
-    np.testing.assert_allclose(fr, 2.0 * er, rtol=1e-6)
-
-    # 3) hash family: fast variants registered, shape-identical, exact on CPU
-    from phys_autodiff_tpu.models.hash_encoder import HashEncodingConfig
-
-    hcfg = HashEncodingConfig(
-        num_levels=3, base_resolution=3, max_resolution=10,
-        log2_table_size=5, dense_oversubscribed=True,
-    )
-    assert hcfg.dense_levels(), "config must exercise the dense matmul path"
-    ht = encoders.init_params(hcfg, seed=1)
-    he = np.asarray(encoders.encode_grid_zcf(hcfg, ht, g))
-    hf = np.asarray(encoders.encode_grid_zcf(hcfg, ht, g, fast=True))
-    assert he.shape == hf.shape
-    np.testing.assert_allclose(hf, he, rtol=1e-6, atol=1e-7)
-    hr = np.asarray(encoders.encode_grid_zcf_rows(hcfg, ht, g, rows, fast=True))
-    np.testing.assert_allclose(hr, hf[np.asarray(rows)], rtol=1e-6, atol=1e-7)
-
-
 def test_toy_family_sharded_matches_single():
-    """The sharded per-shard kernel serves the registered family: the
-    shard-local encode_grid_zcf_rows + psum'd encoder-gradient pullback
-    matches single-chip."""
+    """The sharded generic step serves the registered family: the first
+    step's loss on an 8-device mesh matches the single-device train step,
+    and training on the mesh lowers the loss."""
     from phys_autodiff_tpu.parallel.mesh import make_mesh
-    from phys_autodiff_tpu.pallas.mega_ngp import ngp_loss_and_grad_sharded
+    from phys_autodiff_tpu.parallel.sharded import (
+        make_generic_sharded_train_step,
+    )
+    from phys_autodiff_tpu.train import loop as train_loop
 
     assert len(jax.devices()) >= 8
     mesh = make_mesh(8)
-    g, w, ncfg, params = _setup(nz=16)
+    g, w, ncfg, params = _setup(nx=24, nz=16)
     t = jnp.float32(0.3)
-    l1, (g1, dt1) = ngp_loss_and_grad(g, w, ncfg, params, t, interpret=True)
-    fn = ngp_loss_and_grad_sharded(g, w, ncfg, mesh, interpret=True)
-    ln, (gn, dtn) = fn(params, t)
-    assert abs(float(ln) - float(l1)) <= 5e-6 * abs(float(l1))
-    for k in ("tables", "W1", "b1", "W2", "b2"):
-        assert _leaf_close(g1[k], gn[k], 1e-5), k
-    assert abs(float(dtn) - float(dt1)) <= max(1e-5 * abs(float(dt1)), 1e-7)
+    cfg = train_loop.TrainConfig(t=0.3, learning_rate=1e-3)
+    step1, st1 = train_loop.make_ngp_train_step(g, w, ncfg, cfg, params)
+    _, l1 = step1(st1)
+    step_n, init_n = make_generic_sharded_train_step(
+        g, w, lambda p, tt: ngp.generate_fields(g, ncfg, p, tt, g.dt), mesh,
+        ngp.init_ngp_params(ncfg, seed=7) | {
+            k: params[k] for k in ("b1", "b2")},
+    )
+    pn, on = init_n()
+    losses = []
+    for _ in range(3):
+        pn, on, ln = step_n(pn, on, t)
+        losses.append(float(ln))
+    assert abs(losses[0] - float(l1)) <= 5e-6 * abs(float(l1))
+    assert losses[-1] < losses[0]

@@ -1,15 +1,10 @@
-"""f64 adjudication of the ENCODED-family gradients (round-4 VERDICT #3).
+"""f64 adjudication of the ENCODED-family gradients.
 
-The NGP / Fourier backward mega-kernel (pallas/mega_ngp.py) was previously
-adjudicated only against jax.grad of the staged f32 pipeline — two f32 arms
-that can agree and both be wrong (the exact ambiguity ref/f64_grad.py was
-built to break for the coordinate MLP). These tests apply the same referee
-to the encoded families: an independent float64 replica of
-encode -> head -> residuals -> loss (ref/f64_grad.f64_encoded_loss_and_grad)
-grades both f32 arms, and the kernel passes if its distance to the truth is
-no worse than jax.grad's own (x a small slack) — the strongest correctness
-statement available to any f32 implementation. Central AND upwind schemes
-(the upwind advection has a hand-derived adjoint in the kernel).
+The NGP and Fourier training steps take jax.value_and_grad through the XLA
+pipeline (encoder -> decode head -> residuals -> loss). An independent
+float64 replica of that chain (ref/f64_grad.f64_encoded_loss_and_grad)
+grades the f32 gradient: it must sit within the f32 noise class of the
+truth, for both schemes, both encoder families and both boundary modes.
 """
 
 import jax
@@ -19,7 +14,6 @@ import pytest
 
 from phys_autodiff_tpu import ops
 from phys_autodiff_tpu.models import ngp
-from phys_autodiff_tpu.pallas.mega_ngp import ngp_loss_and_grad, ngp_supported
 from phys_autodiff_tpu.ref.f64_grad import f64_encoded_loss_and_grad
 from phys_autodiff_tpu.utils.config import GridSpec, PhysWeights
 
@@ -40,8 +34,8 @@ def _cat(gp):
 
 def _conditioned_params(ncfg, seed=777):
     """Paper-init tables leave every gradient at the f32 noise floor where
-    relative comparison is meaningless (same conditioning as the hardware
-    parity sweep, scripts/tpu_parity.py::run_ngp_mega)."""
+    relative comparison is meaningless: scale the tables up and give the
+    head nonzero biases."""
     params = ngp.init_ngp_params(ncfg, seed=seed)
     rng = np.random.Generator(np.random.MT19937(21))
     params["tables"] = jax.tree_util.tree_map(
@@ -57,8 +51,9 @@ def _conditioned_params(ncfg, seed=777):
 
 
 def _adjudicate(g, ncfg, params, t=0.25):
-    """Returns (staged_loss_err, kernel_loss_err, d_jax, d_kernel) against
-    the f64 truth."""
+    """(loss_err, grad_err) of the f32 training gradient (jax.value_and_grad
+    through ngp.generate_fields, the NGP step's arm) against the f64
+    truth."""
     l64, gp64 = f64_encoded_loss_and_grad(g, W, ncfg, params, t)
 
     def staged_total(p, tt):
@@ -66,50 +61,25 @@ def _adjudicate(g, ncfg, params, t=0.25):
         return ops.total_loss(g, W, fs)
 
     l32, gp32 = jax.jit(jax.value_and_grad(staged_total))(params, jnp.float32(t))
-    lk, (gpk, _) = jax.jit(lambda p, tt: ngp_loss_and_grad(g, W, ncfg, p, tt))(
-        params, jnp.float32(t)
-    )
-    return (
-        abs(float(l32) - l64) / abs(l64),
-        abs(float(lk) - l64) / abs(l64),
-        _rel(_cat(gp32), _cat(gp64)),
-        _rel(_cat(gpk), _cat(gp64)),
-    )
+    return abs(float(l32) - l64) / abs(l64), _rel(_cat(gp32), _cat(gp64))
 
 
 @pytest.mark.parametrize("scheme", ["central", "upwind"])
 @pytest.mark.parametrize("periodic", [True, False])
-def test_ngp_mega_no_worse_than_jax_grad_vs_f64_truth(scheme, periodic):
+def test_ngp_grad_vs_f64_truth(scheme, periodic):
+    """Measured truth distances of the f32 gradient: 2e-6..1e-5 across the
+    four (scheme, boundary) configs at 32x16x8 (the f32 noise class)."""
     g = GridSpec(
         nx=32, ny=16, nz=8, hx=1 / 32, hy=1 / 16, hz=1 / 8, dt=1e-3,
         periodic=periodic, scheme=scheme,
     )
-    assert ngp_supported(g)
     ncfg = ngp.NGPFieldConfig()
-    params = _conditioned_params(ncfg)
-    s_err, k_err, d_jax, d_kernel = _adjudicate(g, ncfg, params)
-
-    # the f64 referee itself must sit at f32 distance from the staged arm
-    # (a wrong replica would grade a different function — orders of
-    # magnitude off, see test_f64_adjudication's wrong-norm control)
-    assert s_err < 1e-4, s_err
-    assert d_jax < 1e-2, d_jax
-    # losses: kernel within the f32 noise floor of the truth (measured: the
-    # kernel's loss is CLOSER to truth than the staged arm's on central)
-    assert k_err <= max(5.0 * s_err, 1e-6), (k_err, s_err)
-    # gradients: the kernel's truth-distance within the same f32 noise
-    # class as jax.grad's own. The slack is 2.5x (vs the coordinate-MLP
-    # referee's 1.5x): the kernel computes dEnc in H-chunks and pulls it
-    # back through the encoder VJP separately, a different association
-    # than jax.grad's end-to-end chain — measured ratios 1.42-1.96 across
-    # the four (scheme, boundary) configs at 32x16x8, with both arms in
-    # the 2e-6..1e-5 band. The absolute cap keeps the bound meaningful if
-    # d_jax ever collapses.
-    assert d_kernel <= max(2.5 * d_jax, 1e-6), (d_kernel, d_jax)
-    assert d_kernel < 1e-4, d_kernel
+    loss_err, grad_err = _adjudicate(g, ncfg, _conditioned_params(ncfg))
+    assert loss_err < 1e-4, loss_err
+    assert grad_err < 1e-4, grad_err
 
 
-def test_fourier_mega_no_worse_than_jax_grad_vs_f64_truth():
+def test_fourier_grad_vs_f64_truth():
     from phys_autodiff_tpu.models.fourier import FourierEncodingConfig
 
     g = GridSpec(nx=32, ny=16, nz=8, hx=1 / 32, hy=1 / 16, hz=1 / 8, dt=1e-3)
@@ -122,11 +92,9 @@ def test_fourier_mega_no_worse_than_jax_grad_vs_f64_truth():
     params["b2"] = jnp.asarray(
         rng.standard_normal(params["b2"].shape) * 0.3, jnp.float32
     )
-    s_err, k_err, d_jax, d_kernel = _adjudicate(g, ncfg, params)
-    assert s_err < 1e-4, s_err
-    assert d_jax < 1e-2, d_jax
-    assert k_err <= max(5.0 * s_err, 1e-6), (k_err, s_err)
-    assert d_kernel <= max(1.5 * d_jax, 1e-6), (d_kernel, d_jax)
+    loss_err, grad_err = _adjudicate(g, ncfg, params)
+    assert loss_err < 1e-4, loss_err
+    assert grad_err < 1e-4, grad_err
 
 
 def test_f64_encoded_referee_grades_the_right_function():

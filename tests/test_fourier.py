@@ -1,9 +1,9 @@
 """Fourier-feature encoded field model (models/fourier.py + the
 models/encoders dispatch): the second extension encoder family. The same
-decode head, one-kernel training step (pallas/mega_ngp.py), and sharded
-per-shard kernel must serve it unchanged — that interchangeability is the
-framework-generality contract under test. No reference analogue (the
-reference has exactly one model family, SURVEY.md §0)."""
+decode head, training step and sharded step must serve it unchanged — that
+interchangeability is the framework-generality contract under test. No
+reference analogue (the reference has exactly one model family,
+SURVEY.md §0)."""
 
 import jax
 import jax.numpy as jnp
@@ -13,7 +13,6 @@ import pytest
 from phys_autodiff_tpu import ops
 from phys_autodiff_tpu.models import encoders, fourier, ngp
 from phys_autodiff_tpu.models.fourier import FourierEncodingConfig
-from phys_autodiff_tpu.pallas.mega_ngp import ngp_loss_and_grad
 from phys_autodiff_tpu.utils.config import GridSpec, PhysWeights
 
 ENC = FourierEncodingConfig(num_frequencies=2, include_input=True)  # LF=15
@@ -85,14 +84,16 @@ def test_encode_grid_bit_identical_to_pointwise():
     np.testing.assert_array_equal(out, ref)
 
 
-def test_encode_grid_zcf_and_rows_exact():
-    g, _, _, _ = _setup(nx=12, ny=7, nz=8)
-    grid = np.asarray(fourier.encode_grid(ENC, g))
-    zcf = np.asarray(fourier.encode_grid_zcf(ENC, g))
-    np.testing.assert_array_equal(zcf, np.moveaxis(grid, -1, 1))
-    rows = jnp.asarray([6, 7, 0, 1, 2, 3, 0, 0], jnp.int32)  # wrap + dupes
-    sub = np.asarray(fourier.encode_grid_zcf_rows(ENC, g, rows))
-    np.testing.assert_array_equal(sub, zcf[np.asarray(rows)])
+@pytest.mark.parametrize("dims", [(12, 7, 1), (1, 5, 4), (9, 1, 3)],
+                         ids=["nz1", "nx1", "ny1"])
+def test_encode_grid_degenerate_axes(dims):
+    """A degenerate axis takes coordinate 0 in both paths; the grid path
+    stays bit-identical to the pointwise one."""
+    g, _, _, _ = _setup(nx=dims[0], ny=dims[1], nz=dims[2])
+    out = np.asarray(fourier.encode_grid(ENC, g))
+    assert out.shape == (dims[2], dims[1], dims[0], ENC.out_dim)
+    np.testing.assert_array_equal(
+        out, np.asarray(fourier.encode(ENC, ngp._unit_coords(g))))
 
 
 def test_encoders_dispatch():
@@ -114,18 +115,34 @@ def test_encoders_dispatch():
     )
 
 
+def _pointwise_total(g, w, ncfg, params, t):
+    """The staged loss with the fields built from the POINTWISE forward
+    (encoders.encode + the head) — a second code path to the same loss."""
+    coords = ngp._unit_coords(g)
+    ys = [ngp.forward(ncfg, params, coords, tt)
+          for tt in (t - jnp.float32(g.dt), t, t + jnp.float32(g.dt))]
+    fs = ops.FieldSnapshots(
+        *[y[..., 0] for y in ys],
+        *[jnp.moveaxis(y[..., 1:4], -1, 0) for y in ys],
+    )
+    ls, lu = ops.loss_forward(g, w, fs)
+    return ls + lu
+
+
 @pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "clamp"])
-def test_fourier_mega_matches_staged_grad(periodic):
-    """The NGP backward mega-kernel serves the Fourier family unchanged:
-    loss + head grads + d_t vs jax.grad through the staged pipeline, and
-    the parameter-free encoding's cotangent is the empty leaf."""
-    g, w, ncfg, params = _setup(periodic=periodic)
+def test_fourier_train_grad_matches_pointwise_grad(periodic):
+    """The jitted training gradient (grid encoder, shared layer-1 base)
+    serves the Fourier family: loss, head grads and d_t equal jax.grad
+    through the pointwise forward, and the parameter-free encoding's
+    cotangent is the empty leaf."""
+    g, w, ncfg, params = _setup(nx=24, periodic=periodic)
     t = jnp.float32(0.3)
     loss_ref, (g_ref, gt_ref) = jax.value_and_grad(
-        lambda p, tt: _staged_total(g, w, ncfg, p, tt), argnums=(0, 1)
+        lambda p, tt: _pointwise_total(g, w, ncfg, p, tt), argnums=(0, 1)
     )(params, t)
-    loss, (grads, d_t) = ngp_loss_and_grad(g, w, ncfg, params, t,
-                                           interpret=True)
+    loss, (grads, d_t) = jax.jit(jax.value_and_grad(
+        lambda p, tt: _staged_total(g, w, ncfg, p, tt), argnums=(0, 1)
+    ))(params, t)
     assert abs(float(loss) - float(loss_ref)) <= 1e-5 * abs(float(loss_ref))
     assert grads["tables"].size == 0
     tol = 1e-4 if periodic else 5e-3
@@ -136,59 +153,77 @@ def test_fourier_mega_matches_staged_grad(periodic):
     )
 
 
-def test_fourier_mega_flat_layout_upwind():
-    """Unaligned nx + upwind scheme through the shared flat/upwind stages."""
-    g, w, ncfg, params = _setup(nx=64, ny=16, nz=6, scheme="upwind")
+def test_fourier_upwind_unaligned_grad():
+    """Unaligned nx + the upwind scheme through the same training
+    gradient."""
+    g, w, ncfg, params = _setup(nx=20, ny=16, nz=6, scheme="upwind")
     t = jnp.float32(0.3)
     loss_ref, g_ref = jax.value_and_grad(
-        lambda p: _staged_total(g, w, ncfg, p, t)
-    )(params)
-    loss, (grads, _) = ngp_loss_and_grad(g, w, ncfg, params, t,
-                                         interpret=True)
+        lambda p: _pointwise_total(g, w, ncfg, p, t))(params)
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p: _staged_total(g, w, ncfg, p, t)))(params)
     assert abs(float(loss) - float(loss_ref)) <= 1e-5 * abs(float(loss_ref))
     for k in ("W1", "b1", "W2", "b2"):
         assert _leaf_close(g_ref[k], grads[k], 1e-4), k
 
 
 def test_fourier_sharded_matches_single():
-    """The per-shard kernel + shard-local Fourier encoding (zero halo
-    communication, empty-table psum skipped) matches single-chip."""
+    """The generic GSPMD sharded step (shard-local Fourier encoding,
+    replicated params) takes the single-device step's first loss and
+    trains on the mesh."""
     from phys_autodiff_tpu.parallel.mesh import make_mesh
-    from phys_autodiff_tpu.pallas.mega_ngp import ngp_loss_and_grad_sharded
+    from phys_autodiff_tpu.parallel.sharded import (
+        make_generic_sharded_train_step,
+    )
+    from phys_autodiff_tpu.train import loop as train_loop
 
     assert len(jax.devices()) >= 8
     mesh = make_mesh(8)
-    g, w, ncfg, params = _setup(nz=16)
+    g, w, ncfg, params = _setup(nx=24, nz=16)
     t = jnp.float32(0.3)
-    l1, (g1, dt1) = ngp_loss_and_grad(g, w, ncfg, params, t, interpret=True)
-    fn = ngp_loss_and_grad_sharded(g, w, ncfg, mesh, interpret=True)
-    ln, (gn, dtn) = fn(params, t)
-    assert abs(float(ln) - float(l1)) <= 5e-6 * abs(float(l1))
-    assert gn["tables"].size == 0
-    for k in ("W1", "b1", "W2", "b2"):
-        assert _leaf_close(g1[k], gn[k], 1e-5), k
-    assert abs(float(dtn) - float(dt1)) <= max(1e-5 * abs(float(dt1)), 1e-7)
+    cfg = train_loop.TrainConfig(t=0.3, learning_rate=1e-3)
+    step1, st1 = train_loop.make_ngp_train_step(g, w, ncfg, cfg, params)
+    _, l1 = step1(st1)
+    step_n, init_n = make_generic_sharded_train_step(
+        g, w, lambda p, tt: ngp.generate_fields(g, ncfg, p, tt, g.dt), mesh,
+        _setup(nx=24, nz=16)[3],
+    )
+    pn, on = init_n()
+    losses = []
+    for _ in range(3):
+        pn, on, ln = step_n(pn, on, t)
+        losses.append(float(ln))
+    assert abs(losses[0] - float(l1)) <= 5e-6 * abs(float(l1))
+    assert losses[-1] < losses[0]
 
 
-def test_fourier_train_step_mega_matches_xla():
-    """make_ngp_train_step is encoder-agnostic: one optimizer step through
-    the mega backward equals the XLA-arm step for the Fourier family too."""
+def test_fourier_train_step_matches_hand_rolled():
+    """make_ngp_train_step is encoder-agnostic: one SGD step for the
+    Fourier family equals value_and_grad of the staged loss plus the
+    update written out by hand."""
+    import optax
+
     from phys_autodiff_tpu.train import loop as train_loop
 
-    g, w, ncfg, params = _setup()
-    cfg = train_loop.TrainConfig(t_sampling="fixed", learning_rate=1e-3)
-    step_m, st_m = train_loop.make_ngp_train_step(
-        g, w, ncfg, cfg, params, backward="mega"
-    )
-    step_x, st_x = train_loop.make_ngp_train_step(
-        g, w, ncfg, cfg, params, backward="xla"
-    )
-    st_m, l_m = step_m(st_m)
-    st_x, l_x = step_x(st_x)
-    assert abs(float(l_m) - float(l_x)) <= 1e-5 * abs(float(l_x))
-    for a, b in zip(jax.tree_util.tree_leaves(st_m.params),
-                    jax.tree_util.tree_leaves(st_x.params)):
-        assert _leaf_close(a, b, 1e-4)
+    g, w, ncfg, params = _setup(nx=24)
+    cfg = train_loop.TrainConfig(t_sampling="fixed", learning_rate=1e-1,
+                                 optimizer="sgd")
+    step, st = train_loop.make_ngp_train_step(g, w, ncfg, cfg, params)
+    st, loss = step(st)
+
+    @jax.jit
+    def hand_step(p):
+        l, grads = jax.value_and_grad(
+            lambda q: _staged_total(g, w, ncfg, q, jnp.float32(cfg.t)))(p)
+        opt = optax.sgd(cfg.learning_rate)
+        up, _ = opt.update(grads, opt.init(p), p)
+        return l, optax.apply_updates(p, up)
+
+    l_ref, ref = hand_step(params)
+    assert abs(float(loss) - float(l_ref)) <= 1e-6 * abs(float(l_ref))
+    for a, b in zip(jax.tree_util.tree_leaves(st.params),
+                    jax.tree_util.tree_leaves(ref)):
+        assert _leaf_close(b, a, 1e-6)
 
 
 def test_fourier_checkpoint_meta_detects_family_swap(tmp_path):

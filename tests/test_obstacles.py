@@ -71,7 +71,7 @@ def test_mask_builders():
     try:
         obstacles.validate_mask(g, m * 0.5)
         raise RuntimeError("expected non-binary mask to be rejected")
-    except ValueError:  # ADVICE #3: ValueError, not assert
+    except ValueError:  # ValueError, not assert
         pass
 
 
@@ -236,7 +236,7 @@ def test_fluid_divergence_interior_only():
 
 
 def test_entry_sigma_masking_prevents_solid_leak():
-    """Round-3 ADVICE #1: a density initialized INSIDE the solid must not
+    """A density initialized INSIDE the solid must not
     leak into fluid cells — euler_step masks the incoming sigma, not just
     the incoming velocity, so rollout/rollout_loss callers need not
     pre-mask their initial state."""
@@ -254,7 +254,7 @@ def test_entry_sigma_masking_prevents_solid_leak():
 
 
 def test_validate_mask_raises_value_error():
-    """Round-3 ADVICE #3: validate_mask raises (not asserts, so it
+    """validate_mask raises (not asserts, so it
     survives python -O) on shape and non-binary value errors."""
     import pytest
 
@@ -269,7 +269,7 @@ def test_validate_mask_raises_value_error():
 
 
 def test_fit_initial_velocity_accepts_source():
-    """Round-3 ADVICE #4: the convenience fitter passes source= through to
+    """The convenience fitter passes source= through to
     rollout_loss, so emitter-past-obstacle inverse problems run."""
     g = _grid(nx=8, ny=8, nz=8)
     mask = obstacles.box_mask(g, (3, 3, 3), (5, 5, 5))

@@ -73,8 +73,7 @@ def test_loss_forward_parity(sol1):
     assert abs(float(lu) - float(lu_ref)) <= 1e-10  # both ~0
 
     # On-device f32 reduction: looser bound — the CPU backend reduces f32
-    # sums sequentially (TPU's tree reduction lands near 1e-7). The 1e-7
-    # doctrine is carried by the f64 arm above.
+    # sums sequentially. The 1e-7 doctrine is carried by the f64 arm above.
     ls32, lu32 = jax.jit(lambda fs: ops.loss_forward(g, w, fs))(_snapshots(f))
     assert abs(float(ls32) - float(ls_ref)) / abs(float(ls_ref)) <= 1e-4
 

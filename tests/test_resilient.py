@@ -1,6 +1,6 @@
 """Tests for train/resilient.py: checkpoint-every-K training with failure
 detection and auto-resume (fault injection stands in for the real crashed-
-TPU-worker mode the module is built against)."""
+GPU runtime faults the module is built against)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +24,7 @@ def _setup():
 
 
 def _crashing_factory(g, w, mcfg, cfg, crash_at_call: int):
-    """Wrap the real jitted step with one injected worker-crash-shaped
+    """Wrap the real jitted step with one injected device-failure-shaped
     failure at the crash_at_call-th invocation."""
     calls = {"n": 0, "crashed": False}
 
@@ -35,7 +35,7 @@ def _crashing_factory(g, w, mcfg, cfg, crash_at_call: int):
             calls["n"] += 1
             if calls["n"] == crash_at_call and not calls["crashed"]:
                 calls["crashed"] = True
-                raise RuntimeError("TPU worker process crashed or restarted")
+                raise RuntimeError("CUDA_ERROR_LAUNCH_FAILED: unspecified launch failure")
             return real(state)
 
         return step
@@ -81,7 +81,7 @@ def test_resilient_gives_up_after_max_restarts(tmp_path):
 
     def factory():
         def step(state):
-            raise RuntimeError("socket closed: TPU worker unavailable")
+            raise RuntimeError("NCCL error: unhandled system error (connection closed)")
 
         return step
 
@@ -117,8 +117,8 @@ def test_default_failure_predicate_classification():
 
     # retryable: runtime-error type AND infrastructure-shaped message
     assert p(XlaRuntimeError("grpc UNAVAILABLE: socket closed"))
-    assert p(RuntimeError("TPU worker process crashed or restarted"))
-    assert p(RuntimeError("deadline exceeded talking to worker"))
+    assert p(RuntimeError("CUDA_ERROR_LAUNCH_FAILED: unspecified launch failure"))
+    assert p(RuntimeError("DEADLINE_EXCEEDED: barrier timed out waiting for peer"))
     # NOT retryable: deterministic errors must surface immediately —
     # a bare RuntimeError (user NaN guard), an XLA INTERNAL miscompile
     # (identical on every retry), or non-runtime exception types
@@ -192,7 +192,7 @@ def test_resilient_resumes_from_existing_checkpoint(tmp_path):
 
 
 def test_resilient_failure_during_recovery_consumes_budget(tmp_path):
-    """A worker that is still dying when the recovery re-traces must spend
+    """A device that is still failing when the recovery re-traces must spend
     restarts, not kill the run."""
     g, w, mcfg, cfg = _setup()
     state0 = loop.init_state(cfg, mcfg)
@@ -203,13 +203,13 @@ def test_resilient_failure_during_recovery_consumes_budget(tmp_path):
         if calls["factory"] == 2:
             # the FIRST rebuild after the crash fails too (backend still
             # recovering); the second succeeds
-            raise RuntimeError("TPU worker unavailable: socket closed")
+            raise RuntimeError("UNAVAILABLE: coordination service connection lost")
         real = loop.make_train_step(g, w, mcfg, cfg)
 
         def step(state):
             calls["step"] += 1
             if calls["step"] == 3:
-                raise RuntimeError("TPU worker process crashed")
+                raise RuntimeError("device reset: CUDA_ERROR_LAUNCH_FAILED")
             return real(state)
 
         return step
@@ -225,7 +225,7 @@ def test_resilient_failure_during_recovery_consumes_budget(tmp_path):
 
 def test_resilient_serves_the_ngp_step(tmp_path):
     """Cross-feature: fit_resilient over make_ngp_train_step (the encoded-
-    field family) with an injected worker crash — checkpoint meta carries
+    field family) with an injected device failure — checkpoint meta carries
     the encoding schedule and must validate on resume."""
     from phys_autodiff_tpu.models import ngp
     from phys_autodiff_tpu.models.hash_encoder import HashEncodingConfig
@@ -242,7 +242,7 @@ def test_resilient_serves_the_ngp_step(tmp_path):
 
     def factory():
         real, state0 = loop.make_ngp_train_step(
-            g, PhysWeights(), ncfg, cfg, params0, backward="xla"
+            g, PhysWeights(), ncfg, cfg, params0
         )
         factory.state0 = state0
 
@@ -250,7 +250,7 @@ def test_resilient_serves_the_ngp_step(tmp_path):
             calls["n"] += 1
             if calls["n"] == 4 and not calls["crashed"]:
                 calls["crashed"] = True
-                raise RuntimeError("TPU worker process crashed")
+                raise RuntimeError("device reset: CUDA_ERROR_LAUNCH_FAILED")
             return real(state)
 
         return step
@@ -271,9 +271,9 @@ def test_resilient_serves_the_ngp_step(tmp_path):
 def test_resilient_stepless_pytree_tracks_progress(tmp_path):
     """A plain params-dict state (no .step attribute) must not lose its
     progress count across failures or process-level resumes: the completed-
-    step counter rides the checkpoint manifest, not the state (round-3
-    review finding — previously a late failure re-ran the FULL budget on
-    top of the checkpoint, over-training the model)."""
+    step counter rides the checkpoint manifest, not the state (otherwise a
+    late failure re-runs the FULL budget on top of the checkpoint,
+    over-training the model)."""
     # deterministic "optimizer": x <- x + 1, so the step count IS the value
     calls = {"n": 0, "crashed": False}
 
@@ -282,7 +282,7 @@ def test_resilient_stepless_pytree_tracks_progress(tmp_path):
             calls["n"] += 1
             if calls["n"] == 9 and not calls["crashed"]:
                 calls["crashed"] = True
-                raise RuntimeError("TPU worker process crashed or restarted")
+                raise RuntimeError("CUDA_ERROR_LAUNCH_FAILED: unspecified launch failure")
             return {"x": state["x"] + 1.0}, jnp.float32(0.0)
 
         return step

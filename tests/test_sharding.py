@@ -2,8 +2,9 @@
 
 New capability relative to the reference (strictly single-GPU, survey §2).
 Covers both arms: the GSPMD-partitioned staged path (XLA inserts the halo
-collectives) and the shard_map + ppermute explicit-halo path running the
-fused Pallas kernel per shard.
+collectives) and the shard_map explicit-halo path (ppermute halos for the
+residual and loss ops; recomputed halo rows from the kernel pair of
+pallas/fieldgen.py, in interpret mode here, for the fused train step).
 """
 
 import jax
@@ -15,11 +16,11 @@ from phys_autodiff_tpu import ops
 from phys_autodiff_tpu.models import mlp
 from phys_autodiff_tpu.ops.stencil import FieldSnapshots
 from phys_autodiff_tpu.parallel import (
-    loss_forward_fused_sharded,
+    loss_forward_halo_sharded,
     make_mesh,
     make_sharded_fused_train_step,
     make_sharded_train_step,
-    residuals_fused_sharded,
+    residuals_halo_sharded,
     residuals_sharded,
     shard_fields,
 )
@@ -74,7 +75,7 @@ def test_shard_map_fused_residuals_match_single_device(mesh, periodic):
     fs = _snapshots(g)
     rs_1, ru_1 = jax.jit(lambda x: ops.residuals(g, x))(fs)
     rs_n, ru_n = jax.jit(
-        lambda x: residuals_fused_sharded(g, mesh, x, interpret=True)
+        lambda x: residuals_halo_sharded(g, mesh, x)
     )(shard_fields(mesh, fs))
     assert rel_l2_err(rs_n, rs_1) <= 1e-7
     assert max_abs_err(rs_n, rs_1) <= 1e-6
@@ -100,19 +101,19 @@ def test_sharded_loss_matches_single_device(mesh):
 
 @pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "clamp"])
 def test_sharded_fused_loss_deterministic_1e7(mesh, periodic):
-    """The fused sharded loss (ppermute halos + per-shard fused loss kernel
-    + fixed-order plane-partial reduction) meets the single-chip fused loss
-    at the 1e-7 doctrine — per-plane partials are computed by identical
-    programs and the final chain has mesh-independent association. (The
-    unconstrained psum arm above is held only to 1e-4.)"""
-    from phys_autodiff_tpu.pallas.residuals import loss_forward_fused
+    """The halo sharded loss (ppermute halos + per-shard plane partials +
+    fixed-order plane-partial reduction) meets the single-chip planewise
+    loss at the 1e-7 doctrine — per-plane partials are computed by
+    identical programs and the final chain has mesh-independent
+    association. (The unconstrained psum arm above is held only to 1e-4.)"""
+    from phys_autodiff_tpu.ops.loss import loss_forward_planewise
 
     g = _grid(periodic)
     fs = _snapshots(g)
     w = PhysWeights(w_sigma=1.7, w_u=0.9)
-    ls_1, lu_1 = jax.jit(lambda x: loss_forward_fused(g, w, x, True))(fs)
+    ls_1, lu_1 = jax.jit(lambda x: loss_forward_planewise(g, w, x))(fs)
     ls_n, lu_n = jax.jit(
-        lambda x: loss_forward_fused_sharded(g, w, mesh, x, interpret=True)
+        lambda x: loss_forward_halo_sharded(g, w, mesh, x)
     )(shard_fields(mesh, fs))
     assert abs(float(ls_n) - float(ls_1)) / abs(float(ls_1)) <= 1e-7
     assert abs(float(lu_n) - float(lu_1)) / abs(float(lu_1)) <= 1e-7
@@ -139,37 +140,38 @@ def test_sharded_planewise_staged_loss_1e7(mesh):
     assert abs(float(lu_n) - float(lu_1)) / abs(float(lu_1)) <= 1e-7
 
 
-def test_sharded_fused_train_step_matches_single(mesh):
-    """The sharded FUSED step (per-shard slab-scan recompute gradients +
-    psum + fixed-order loss) matches the single-chip slab gradient step."""
+def _single_fused_step(g, w, mcfg, params, t, lr):
+    """Reference: one single-device fused step (loss_fn(use_fused=True),
+    the kernel pair) + Adam."""
     import optax
 
-    from phys_autodiff_tpu.train.slab_grad import make_slab_loss_and_grad
+    from phys_autodiff_tpu.train.loop import loss_fn
 
+    l1, gp1 = jax.jit(jax.value_and_grad(
+        lambda p: loss_fn(g, w, mcfg, p, t, True)))(params)
+    opt = optax.adam(lr)
+    up, _ = opt.update(gp1, opt.init(params), params)
+    return l1, optax.apply_updates(params, up)
+
+
+def test_sharded_fused_train_step_matches_single(mesh):
+    """The sharded FUSED step (per-shard kernel-pair rows with recomputed
+    halo rows, psum'd gradients, fixed-order loss) matches the single-chip
+    fused step."""
     g = _grid()
     w = PhysWeights()
     mcfg = MLPGridConfig(dims=MLPDims(H=32))
     params = mlp.init_params(mcfg.dims, seed=5)
     t = jnp.float32(0.25)
-    lr = 1e-3
-
-    # single-chip slab-gradient step
-    lg = make_slab_loss_and_grad(g, w, mcfg, sz=2)
-    l1, (gp1, _) = jax.jit(lg)(params, t)
-    opt = optax.adam(lr)
-    up, _ = opt.update(gp1, opt.init(params), params)
-    p1 = optax.apply_updates(params, up)
-
-    # sharded fused step
-    step_n, init_n = make_sharded_fused_train_step(g, w, mcfg, mesh, lr, sz=2)
+    l1, p1 = _single_fused_step(g, w, mcfg, params, t, 1e-3)
+    step_n, init_n = make_sharded_fused_train_step(g, w, mcfg, mesh, 1e-3)
     pn, on = init_n(params)
     pn, on, ln = step_n(pn, on, t)
-
-    # both are f32 slab programs compiled separately (scan vs shard_map)
+    # the two loss reductions associate differently (whole-grid sum vs
+    # plane partials in z order)
     assert abs(float(ln) - float(l1)) / abs(float(l1)) <= 5e-6
     for k in p1:
         assert rel_l2_err(pn[k], p1[k]) <= 1e-6, k
-
     # and a second step stays finite / decreases the loss
     pn, on, ln2 = step_n(pn, on, t)
     assert np.isfinite(float(ln2)) and float(ln2) < float(ln)
@@ -198,74 +200,27 @@ def test_sharded_train_step_matches_single_device(mesh):
         assert rel_l2_err(params_n[k], state1.params[k]) <= 1e-6, k
 
 
-def test_sharded_mega_bwd_step_matches_single(mesh):
-    """backward="mega": the fused backward mega-kernel runs per shard; the
-    step matches the single-chip mega_loss_and_grad step at f32 noise."""
-    import optax
-
-    from phys_autodiff_tpu.pallas.mega_bwd import mega_loss_and_grad
-
-    g = GridSpec(nx=128, ny=8, nz=16, hx=0.3, hy=0.35, hz=0.4, dt=1e-2)
-    w = PhysWeights()
-    mcfg = MLPGridConfig(dims=MLPDims(H=32))
-    params = mlp.init_params(mcfg.dims, seed=5)
-    t = jnp.float32(0.25)
-    lr = 1e-3
-
-    l1, (gp1, _) = mega_loss_and_grad(g, w, mcfg, params, t, "f32", True)
-    opt = optax.adam(lr)
-    up, _ = opt.update(gp1, opt.init(params), params)
-    p1 = optax.apply_updates(params, up)
-
-    step_n, init_n = make_sharded_fused_train_step(
-        g, w, mcfg, mesh, lr, backward="mega"
-    )
-    pn, on = init_n(params)
-    pn, on, ln = step_n(pn, on, t)
-
-    # separately-compiled kernel instances differ at the last f32 bit
-    assert abs(float(ln) - float(l1)) / abs(float(l1)) <= 5e-6
-    for k in p1:
-        assert rel_l2_err(pn[k], p1[k]) <= 1e-6, k
-
-
 @pytest.mark.parametrize(
-    "scheme,nx,ny",
-    [("upwind", 128, 8), ("central", 64, 16), ("upwind", 64, 16)],
-    ids=["upwind-aligned", "central-flat", "upwind-flat"],
+    "scheme,nx,ny,periodic",
+    [("upwind", 32, 16, True), ("central", 24, 8, False),
+     ("upwind", 24, 8, False), ("central", 20, 6, True)],
+    ids=["upwind-periodic", "central-clamp", "upwind-clamp", "central-odd"],
 )
-def test_sharded_mega_bwd_auto_routing_matches_single(mesh, scheme, nx, ny):
-    """mega_supported() accepts upwind and flat/unaligned planes, which
-    silently re-routes backward="auto" multi-chip training from the slab arm
-    into the per-shard mega kernel for those classes — so every
-    newly-accepted class needs SHARDED parity coverage, not just the
-    single-chip tests (round-3 review finding). Compares one "auto" sharded
-    step against the single-chip mega step for each class."""
-    import optax
-
-    from phys_autodiff_tpu.pallas.mega_bwd import mega_loss_and_grad, mega_supported
-
-    g = GridSpec(
-        nx=nx, ny=ny, nz=16, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, scheme=scheme
-    )
-    assert mega_supported(g)  # the predicate backward="auto" routes on
+def test_sharded_fused_step_matches_single_classes(mesh, scheme, nx, ny,
+                                                    periodic):
+    """The sharded fused step honours the scheme and the boundary mode (the
+    clamped halo rows at the global z edges) on every grid class, including
+    planes whose cell count leaves a masked tile tail."""
+    g = GridSpec(nx=nx, ny=ny, nz=16, hx=0.3, hy=0.35, hz=0.4, dt=1e-2,
+                 scheme=scheme, periodic=periodic)
     w = PhysWeights()
     mcfg = MLPGridConfig(dims=MLPDims(H=32))
     params = mlp.init_params(mcfg.dims, seed=5)
     t = jnp.float32(0.25)
-    lr = 1e-3
-
-    l1, (gp1, _) = mega_loss_and_grad(g, w, mcfg, params, t, "f32", True)
-    opt = optax.adam(lr)
-    up, _ = opt.update(gp1, opt.init(params), params)
-    p1 = optax.apply_updates(params, up)
-
-    step_n, init_n = make_sharded_fused_train_step(
-        g, w, mcfg, mesh, lr, backward="auto"
-    )
+    l1, p1 = _single_fused_step(g, w, mcfg, params, t, 1e-3)
+    step_n, init_n = make_sharded_fused_train_step(g, w, mcfg, mesh, 1e-3)
     pn, on = init_n(params)
     pn, on, ln = step_n(pn, on, t)
-
     assert abs(float(ln) - float(l1)) / abs(float(l1)) <= 5e-6
     for k in p1:
         assert rel_l2_err(pn[k], p1[k]) <= 1e-6, k
@@ -273,15 +228,15 @@ def test_sharded_mega_bwd_auto_routing_matches_single(mesh, scheme, nx, ny):
 
 def test_shard_map_fused_residuals_upwind_scheme(mesh):
     """Regression: the per-shard local GridSpec must inherit the advection
-    scheme — the round-2 bug built it without scheme=, silently computing
-    CENTRAL differences for upwind grids on the mesh."""
+    scheme — built without scheme=, it would silently compute CENTRAL
+    differences for upwind grids on the mesh."""
     import dataclasses
 
     g = dataclasses.replace(_grid(), scheme="upwind")
     fs = _snapshots(g)
     rs_1, ru_1 = jax.jit(lambda x: ops.residuals(g, x))(fs)
     rs_n, ru_n = jax.jit(
-        lambda x: residuals_fused_sharded(g, mesh, x, interpret=True)
+        lambda x: residuals_halo_sharded(g, mesh, x)
     )(shard_fields(mesh, fs))
     assert rel_l2_err(rs_n, rs_1) <= 1e-7
     assert max_abs_err(rs_n, rs_1) <= 1e-6
@@ -289,20 +244,22 @@ def test_shard_map_fused_residuals_upwind_scheme(mesh):
 
 
 def test_sharded_fused_loss_upwind_1e7(mesh):
-    """The fixed-order sharded fused loss honors the upwind scheme too
-    (compared against the single-chip fused loss, like the central-scheme
-    1e-7 doctrine test — the staged arm differs by f32 reduction order)."""
+    """The fixed-order sharded halo loss honors the upwind scheme too, and
+    is mesh-independent at the 1e-7 doctrine: the 8-device result equals
+    the same program on a 1-device mesh. (The full-grid planewise program
+    fuses the upwind selects differently and sits 7e-7 away in L_u on the
+    CPU backend.)"""
     import dataclasses
-
-    from phys_autodiff_tpu.pallas.residuals import loss_forward_fused
-    from phys_autodiff_tpu.parallel.sharded import loss_forward_fused_sharded
 
     g = dataclasses.replace(_grid(), scheme="upwind")
     fs = _snapshots(g)
     w = PhysWeights(w_sigma=1.1, w_u=0.6)
-    ls_1, lu_1 = jax.jit(lambda x: loss_forward_fused(g, w, x, True))(fs)
+    mesh1 = make_mesh(1)
+    ls_1, lu_1 = jax.jit(
+        lambda x: loss_forward_halo_sharded(g, w, mesh1, x)
+    )(shard_fields(mesh1, fs))
     ls_n, lu_n = jax.jit(
-        lambda x: loss_forward_fused_sharded(g, w, mesh, x, interpret=True)
+        lambda x: loss_forward_halo_sharded(g, w, mesh, x)
     )(shard_fields(mesh, fs))
     assert abs(float(ls_n) - float(ls_1)) / abs(float(ls_1)) <= 1e-7
     assert abs(float(lu_n) - float(lu_1)) / abs(float(lu_1)) <= 1e-7

@@ -122,7 +122,7 @@ def test_sharded_projection_uneven_z_rejected():
 
 
 def test_sharded_euler_maccormack_confinement_matches_single_chip():
-    """The round-3 additions (limited MacCormack advection + vorticity
+    """Limited MacCormack advection + vorticity
     confinement) through the sharded rollout: fp-tolerance parity vs the
     single-chip rollout (the pencil FFT evaluates in a different order)."""
     from phys_autodiff_tpu.apps import euler

@@ -84,7 +84,7 @@ def test_restore_unvalidated_still_checks_expect_meta(tmp_path):
     """allow_unvalidated=True (manifest-less restore) must not silently skip
     an explicitly requested expect_meta check: the schedule cannot be
     verified, and the caller must hear THAT, not just a generic no-manifest
-    note (round-3 review finding)."""
+    note."""
     import warnings
 
     import pytest
